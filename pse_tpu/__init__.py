@@ -1,4 +1,4 @@
-"""pse_tpu — TPU-native Positively Split Ewald (PSE) Brownian dynamics.
+"""pse_tpu — Positively Split Ewald (PSE) Brownian dynamics in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of the
 stochasticHydroTools/PSE HOOMD plugin (Fiore, Balboa Usabiaga, Donev & Swan,

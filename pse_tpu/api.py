@@ -36,8 +36,8 @@ import numpy as np
 from . import shear as shear_function
 from .box import Box
 from .integrator import (
-    OVF_CLASS, State, StepConfig, grow_config, make_config, make_state,
-    mobility, step as _step,
+    State, StepConfig, grow_config, make_config, make_state, mobility,
+    step as _step,
 )
 from .params import make_params
 
@@ -47,10 +47,10 @@ class PSEv1:
     """Integration-method description (mirrors integrate.PSEv1 args,
     integrate.py:32).  ``nlist_type``: "cell" is the rcut-sized 27-stencil
     cell list; "stencil" is a genuine finer-cell backend (rcut/2 cells,
-    125-stencil — the TPU analogue of the reference's CellListStencil,
+    125-stencil — the analogue of the reference's CellListStencil,
     integrate.py:69-74) used by the gather engine's neighbor enumeration;
-    "tree" has no TPU analogue (irregular tree walks serialize on random
-    gathers) and maps to "cell" with a warning."""
+    "tree" has no analogue here (the engines bin particles into regular
+    cells) and maps to "cell" with a warning."""
 
     T: float | Callable = 1.0
     seed: int = 0
@@ -75,12 +75,12 @@ class PSEv1:
             import warnings
 
             # The reference's tree backend (integrate.py:60-68:
-            # NeighborListGPUTree) is a GPU space/time tradeoff around
-            # irregular memory access; on TPU random gathers serialize at
-            # ~0.11 G elem/s, so a tree walk cannot compete (see DESIGN.md).
-            # Accepted for API parity, mapped to the cell backend.
+            # NeighborListGPUTree) is a space/time tradeoff around
+            # irregular memory access; every engine here bins particles
+            # into regular cells instead.  Accepted for API parity, mapped
+            # to the cell backend.
             warnings.warn(
-                "nlist_type='tree' has no TPU-native analogue; using the "
+                "nlist_type='tree' has no analogue here; using the "
                 "cell-list backend (results identical, performance "
                 "characteristics differ from the reference's GPU backend)",
                 stacklevel=2,
@@ -130,7 +130,6 @@ class Simulation:
         # Per-step observability (SURVEY.md §5: "step timing and Lanczos m"):
         # m_lanczos histogram {m: count}, overflow regrow retries, total steps.
         self.metrics = {"m_lanczos_hist": {}, "overflow_retries": 0, "steps": 0}
-        self._class_regrows = 0
 
     # -- setup ------------------------------------------------------------
 
@@ -177,12 +176,6 @@ class Simulation:
             # analogue); only the gather engine enumerates neighbors, the
             # blocked/banded engines bin directly.
             nbr_subdiv=2 if method.nlist_type.upper() == "STENCIL" else 1,
-            # measured column occupancy sizes the banded engine's packing
-            # classes (structured densities beat any Poisson model)
-            positions=np.asarray(
-                self.state.pos if self._group is None
-                else self.state.pos[self._group]
-            ),
         )
         # Cell sizes and the spreading-Gaussian safety factor λ(γ) are built
         # for THIS worst-case tilt; set_params must not silently exceed it.
@@ -360,37 +353,6 @@ class Simulation:
                     )
                 flags = int(new_state.nbr_overflow)
                 self.config = grow_config(self.config, flags=flags)
-                if (flags & OVF_CLASS
-                        and self.config.band_spec is not None
-                        and self._class_regrows < 2):
-                    # the density drifted past the occupancy classes sized at
-                    # construction: re-measure from the CURRENT positions
-                    # (grow_config above dropped to the safe single class;
-                    # after 2 re-measures give up and keep it)
-                    from pse_tpu.ops import banded_nearfield as bdn
-
-                    self._class_regrows += 1
-                    pos_h = np.asarray(
-                        snapshot.pos if self._group is None
-                        else snapshot.pos[self._group]
-                    )
-                    bs = self.config.band_spec
-                    counts = bdn.measure_col_counts(
-                        bs, pos_h, self.config.params.L,
-                        tilt=float(np.asarray(snapshot.tilt_xy)),
-                    )
-                    new_bs = bdn.make_band_classes(bs, pos_h.shape[0], counts)
-                    # configs built for halo slabs (shard_slabs > 1) also
-                    # re-measure the per-shard classes grow_config dropped
-                    from pse_tpu.integrator import _size_slab_classes
-
-                    new_bs = _size_slab_classes(
-                        new_bs, self.config.shard_slabs, pos_h.shape[0],
-                        counts,
-                    )
-                    self.config = dataclasses.replace(
-                        self.config, band_spec=new_bs
-                    )
                 self.state = snapshot
                 self.metrics["overflow_retries"] += 1
                 continue

@@ -1,6 +1,6 @@
 """Periodic (optionally xy-tilted / sheared) simulation box.
 
-TPU-native replacement for HOOMD's ``BoxDim`` as used by the PSE plugin
+Replacement for HOOMD's ``BoxDim`` as used by the PSE plugin
 (reference: Mobility.cu:230-237, Stokes.cu:185, Helper.cu:305-311).  Only the
 features PSE needs are provided: a centered orthorhombic box with an ``xy``
 tilt factor (linear shear with gradient along y, flow along x), fractional
@@ -91,9 +91,9 @@ def min_image(box: Box, dr: jax.Array) -> jax.Array:
 def min_image_components(box: Box, dx, dy, dz):
     """Component-wise minimum image (same math as ``min_image``).
 
-    TPU-layout-friendly: avoids materializing large (..., 3) arrays whose
-    minor dimension would be tile-padded 3 -> 128 (a 42x memory blowup for
-    neighbor-candidate-sized inputs).
+    Structure-of-arrays: avoids materializing large (..., 3) arrays for
+    neighbor-candidate-sized inputs (a 3-wide minor dimension defeats
+    coalesced access and vectorized fusions).
     """
     L = box.L
     img_z = jnp.round(dz / L[2])

@@ -1,13 +1,12 @@
-"""Padded cell-major particle storage — the TPU-native data layout.
+"""Padded cell-major particle storage.
 
-Measured on TPU, XLA's random gather/scatter runs ~0.11 G elem/s (serialized)
-while dense reads stream at HBM bandwidth.  Every hot interaction in PSE
-(near-field pair sums, NUFFT spread/contract) therefore runs on a *dense,
-regular* representation: particles binned into a fractional-space cell grid,
-each cell padded to a fixed capacity.  Cell neighborhoods become 3-D rolls of
-small arrays; pair interactions become batched (cap × cap) matrix blocks that
-feed the MXU; the only irregular memory ops left are O(N) permutation
-scatters/gathers at step boundaries.
+Every hot interaction in PSE (near-field pair sums, NUFFT spread/contract)
+runs on a *dense, regular* representation: particles binned into a
+fractional-space cell grid, each cell padded to a fixed capacity.  Cell
+neighborhoods become 3-D rolls of small arrays or contiguous rank windows;
+pair interactions become batched matrix blocks or matrix-free kernel tiles;
+the only irregular memory ops left are O(N) permutation scatters/gathers at
+step boundaries.
 
 Binning is done in fractional coordinates, so the cell grid stays regular
 under box tilt (the physics uses true minimum-image distances, computed
@@ -22,9 +21,6 @@ from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
 from .box import Box, make_fraction
 
 
@@ -60,23 +56,16 @@ class CellBins(NamedTuple):
 
 
 def _invert_perm_payload(order: jax.Array, payload: jax.Array) -> jax.Array:
-    """out[order[i]] = payload[i] — inverse permutation via one keyed sort.
-
-    An XLA scatter runs ~0.11 G elem/s on TPU (measured, DESIGN.md); a
-    device sort of the same 100k rows is ~3× faster, so the inverse perm
-    is computed by sorting (order, payload) on the first key.
-    """
+    """out[order[i]] = payload[i] — inverse permutation via one keyed sort
+    (deterministic, no scatter)."""
     return jax.lax.sort((order, payload), num_keys=1)[1]
 
 
 def _scatter_fields(pos_sorted, order, sorted_cid, rank_clip, c_total, cap):
-    """All padded per-slot fields in ONE windowed scatter.
-
-    Five separate (N,)→(C, cap) scatters measured ~0.59 ms EACH on TPU
-    (scatter cost is per-row, not per-byte), so (px, py, pz, pid) scatter
-    together as a 4-wide column window into a (4, C·cap) target; mask and
-    the int pid are derived from the pid lane (exact as f32 for N < 2²⁴).
-    """
+    """All padded per-slot fields in ONE windowed scatter: (px, py, pz,
+    pid) scatter together as a 4-wide column window into a (4, C·cap)
+    target; mask and the int pid are derived from the pid lane (exact as
+    f32 for N < 2²⁴)."""
     n = order.shape[0]
     assert n < (1 << 24), "pid-as-f32 scatter packing requires N < 2^24"
     dtype = pos_sorted.dtype
@@ -100,141 +89,26 @@ def _scatter_fields(pos_sorted, order, sorted_cid, rank_clip, c_total, cap):
 
 
 def _scatter_values(vals_t, sorted_cid, rank_clip, c_total, cap):
-    """(3, N) cid-sorted values -> (3, C, cap), off-TPU fallback of the fill
-    kernel's v rows (same placement as vec_to_cells)."""
+    """(3, N) cid-sorted values -> (3, C, cap) (same placement as
+    vec_to_cells)."""
     slot = sorted_cid * cap + rank_clip
     out = jnp.zeros((3, c_total * cap), vals_t.dtype)
     out = out.at[:, slot].set(vals_t, mode="drop")
     return out.reshape(3, c_total, cap)
 
 
-def _use_fill_kernel(n: int, with_values: bool = False) -> bool:
-    """The ragged-shift fill reads its (4, N) source as a whole-array VMEM
-    input; past ~4M particles that block alone crowds the ~128 MB VMEM, so
-    very large single-shard binnings keep the XLA scatter (the halo path
-    shards bins per device long before this matters).  With value rows the
-    source doubles to (8, N) — halve the cutoff."""
-    import jax
-
-    cap = 2_000_000 if with_values else 4_000_000
-    return jax.default_backend() == "tpu" and n <= cap
-
-
-def _fill_kernel(starts_ref, counts_ref, src_ref, out_ref, *, cap_r, cpg, n,
-                 has_values):
-    """Grid (C // cpg,): per cell, 128-aligned wide reads of the cid-sorted
-    source rows at starts[c] + a lane roll + a count mask.
-
-    The cid-sort makes each cell's particles a CONTIGUOUS source range, so
-    the (N,) -> (C, cap) placement is a per-cell shift — the same
-    read-wide + pltpu.roll pattern as the banded kernels — instead of the
-    serialized XLA row scatter it replaces (measured ~0.1 G rows/s,
-    ~1.6 ms/step across the two binnings at bench scale).
-
-    The shift runs in 128-lane output chunks, each from its own (4, 256)
-    read with a positive-biased roll: dynamic pltpu.roll with a NEGATIVE
-    shift wraps modulo the next power-of-two lane width on hardware
-    (measured, tools/diag_roll.py — wrong at 384/640/768 lanes; interpret
-    mode agrees at any width), and 256-wide reads keep the per-cell VMEM
-    traffic bounded for any cap.
-
-    Output rows per cell: [x, y, z, mask, pid, vx, vy, vz]; pad slots get
-    mask 0 / pid n / positions 0 (the CellBins contract).  With
-    ``has_values``, the v rows carry per-particle VALUES (the step's
-    forces) that ride the binning sort as payloads — filling them here
-    replaces an N-row XLA scatter (vec_to_cells, measured ~0.97 ms/step
-    each at bench scale) with three already-paid-for output rows; without,
-    the source stays (4, N) (half the whole-array VMEM residency) and the
-    v rows are zeroed once per cell.
-    """
-    g = pl.program_id(0)
-    for ci in range(cpg):
-        c = g * cpg + ci
-        s0 = starts_ref[c]
-        a0 = pl.multiple_of(s0 // 128 * 128, 128)
-        # + 256 biases the roll positive: negative dynamic rolls wrap mod
-        # the next power-of-two width on hardware (tools/diag_roll.py)
-        sh = a0 - s0 + 256
-        cnt = counts_ref[c]
-        for k in range(cap_r // 128):
-            win = pltpu.roll(
-                src_ref[:, pl.ds(a0 + 128 * k, 256)], sh, 1
-            )[:, :128]                                   # (4 or 8, 128)
-            iota = jax.lax.broadcasted_iota(jnp.int32, (1, 128), 1) + 128 * k
-            valid = iota < cnt
-            sl = slice(128 * k, 128 * (k + 1))
-            out_ref[ci, 0:3, sl] = jnp.where(valid, win[0:3], 0.0)
-            out_ref[ci, 3:4, sl] = jnp.where(valid, 1.0, 0.0)
-            out_ref[ci, 4:5, sl] = jnp.where(valid, win[3:4], float(n))
-            if has_values:
-                out_ref[ci, 5:8, sl] = jnp.where(valid, win[4:7], 0.0)
-        if not has_values:
-            out_ref[ci, 5:8] = jnp.zeros((3, cap_r), jnp.float32)
-
-
-def _fill_cells_pallas(pos_sorted_t, order, starts, counts, c_total, cap, n,
-                       interpret=False, values_t=None):
-    """(4, N) cid-sorted rows -> px/py/pz/mask/pid in (C, cap) via the
-    ragged-shift kernel.  ``pos_sorted_t`` rows are (x, y, z); ``order``
-    rides as the pid row (exact as f32 for N < 2^24).
-
-    ``values_t``: optional (3, N) cid-sorted per-particle values (forces);
-    when given, an extra (3, C, cap) slot array is returned — see
-    _fill_kernel's v rows."""
-    assert n < (1 << 24), "pid-as-f32 packing requires N < 2^24"
-    cap_r = -(-cap // 128) * 128         # kernel writes full 128-lane chunks
-    n_pad = -(-n // 128) * 128 + cap_r + 128
-    rows = [pos_sorted_t, order.astype(jnp.float32)[None]]
-    if values_t is not None:
-        rows.append(values_t)
-    src = jnp.concatenate(rows, axis=0)                   # (4 or 7, N)
-    src = jnp.pad(
-        src, ((0, (8 if values_t is not None else 4) - src.shape[0]),
-              (0, n_pad - n))
-    )
-    cpg = next((d for d in (8, 4, 2) if c_total % d == 0), 1)
-    starts_ext = jnp.minimum(starts, jnp.int32(n))
-    out = pl.pallas_call(
-        partial(_fill_kernel, cap_r=cap_r, cpg=cpg, n=n,
-                has_values=values_t is not None),
-        grid=(c_total // cpg,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),        # starts (C,)
-            pl.BlockSpec(memory_space=pltpu.SMEM),        # counts (C,)
-            pl.BlockSpec(memory_space=pltpu.VMEM),        # src (whole)
-        ],
-        out_specs=pl.BlockSpec(
-            (cpg, 8, cap_r), lambda g: (g, 0, 0), memory_space=pltpu.VMEM
-        ),
-        out_shape=jax.ShapeDtypeStruct((c_total, 8, cap_r), jnp.float32),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel",),
-        ),
-        interpret=interpret,
-    )(starts_ext, counts, src)
-    px, py, pz, mask, pidf = (out[:, k, :cap] for k in range(5))
-    fields = (px, py, pz, mask, pidf.astype(jnp.int32))
-    if values_t is not None:
-        fields += (jnp.moveaxis(out[:, 5:8, :cap], 1, 0),)  # (3, C, cap)
-    return fields
-
-
-def _cell_starts_counts(sorted_cid, c_total, cap):
-    """Per-cell start offsets / occupancies of the cid-sorted array, plus
-    the clipped within-cell ranks (rank_of payloads) and overflow flag."""
+def _cell_ranks(sorted_cid, cap):
+    """Within-cell ranks of the cid-sorted array (rank_of payloads) and the
+    capacity overflow flag."""
     n = sorted_cid.shape[0]
     arange = jnp.arange(n, dtype=jnp.int32)
-    starts = jnp.searchsorted(
-        sorted_cid, jnp.arange(c_total, dtype=jnp.int32), side="left"
-    ).astype(jnp.int32)
-    counts = jnp.diff(jnp.concatenate([starts, jnp.array([n], jnp.int32)]))
     is_start = jnp.concatenate(
         [jnp.ones((1,), bool), sorted_cid[1:] != sorted_cid[:-1]]
     )
     seg_start = jax.lax.cummax(jnp.where(is_start, arange, 0))
     rank_sorted = arange - seg_start
     overflow = (rank_sorted >= cap).any()
-    return starts, counts, rank_sorted, overflow
+    return rank_sorted, overflow
 
 
 def choose_cap(mean_occupancy: float, multiple: int = 8, slack_sigmas: float = 5.0) -> int:
@@ -250,10 +124,9 @@ def bin_particles(pos: jax.Array, box: Box, spec: BinSpec,
     """Bin particles into (C, cap) slot layout.
 
     ``values``: optional (N, 3) per-particle values (the step's forces) to
-    carry through the SAME binning — they ride the rank sort as payloads
-    and the fill kernel's spare output rows, so the slot-layout force array
-    costs ~nothing extra, vs ~0.97 ms/step for the vec_to_cells N-row XLA
-    scatter it replaces.  Returns (bins, (3, C, cap) values) when given.
+    carry through the SAME binning — they ride the rank sort as payloads,
+    so the slot-layout force array needs no separate vec_to_cells.
+    Returns (bins, (3, C, cap) values) when given.
     """
     n = pos.shape[0]
     ncx, ncy, ncz = spec.n_cells
@@ -271,9 +144,8 @@ def bin_particles(pos: jax.Array, box: Box, spec: BinSpec,
     cid = (cxyz[:, 0] * ncy + cxyz[:, 1]) * ncz + cxyz[:, 2]
 
     # Rank within cell via sort + segment offsets (deterministic: arange is
-    # the tie-break key).  Positions ride the sort as payloads — a separate
-    # pos[order]/cid[order] gather measured ~0.8 ms at N=100k (XLA random
-    # gathers serialize), while sort payload moves are vectorized.
+    # the tie-break key).  Positions ride the sort as payloads instead of a
+    # separate pos[order]/cid[order] gather.
     arange = jnp.arange(n, dtype=jnp.int32)
     payloads = (cid, arange, pos[:, 0], pos[:, 1], pos[:, 2])
     if values is not None:
@@ -281,35 +153,16 @@ def bin_particles(pos: jax.Array, box: Box, spec: BinSpec,
     sorted_all = jax.lax.sort(payloads, num_keys=2)
     sorted_cid, order, sx, sy, sz = sorted_all[:5]
     vals_t = jnp.stack(sorted_all[5:8], axis=0) if values is not None else None
-    starts, counts, rank_sorted, overflow = _cell_starts_counts(
-        sorted_cid, c_total, cap
-    )
+    rank_sorted, overflow = _cell_ranks(sorted_cid, cap)
     rank_clip = jnp.minimum(rank_sorted, cap - 1)
     rank_of = _invert_perm_payload(order, rank_sorted)
 
-    if _use_fill_kernel(n):
-        # Ragged-shift Pallas fill (the XLA row scatter serializes); off-TPU
-        # keeps the scatter — interpret-mode Pallas costs minutes of compile
-        # per binning config, and CPU scatters are fine.  Values ride the
-        # fill only while the doubled (8, N) source still fits VMEM; in the
-        # 2M-4M gap they fall back to the scatter alone.
-        fill_v = vals_t if _use_fill_kernel(n, True) else None
-        fields = _fill_cells_pallas(
-            jnp.stack([sx, sy, sz], axis=0), order, starts, counts,
-            c_total, cap, n, values_t=fill_v,
-        )
-        px, py, pz, mask, pid = fields[:5]
-        fcells = fields[5] if fill_v is not None else (
-            _scatter_values(vals_t, sorted_cid, rank_clip, c_total, cap)
-            if values is not None else None
-        )
-    else:
-        px, py, pz, mask, pid = _scatter_fields(
-            jnp.stack([sx, sy, sz], axis=1), order, sorted_cid, rank_clip,
-            c_total, cap,
-        )
-        fcells = (_scatter_values(vals_t, sorted_cid, rank_clip, c_total,
-                                  cap) if values is not None else None)
+    px, py, pz, mask, pid = _scatter_fields(
+        jnp.stack([sx, sy, sz], axis=1), order, sorted_cid, rank_clip,
+        c_total, cap,
+    )
+    fcells = (_scatter_values(vals_t, sorted_cid, rank_clip, c_total, cap)
+              if values is not None else None)
 
     bins = CellBins(
         px=px, py=py, pz=pz, mask=mask, pid=pid,
@@ -368,30 +221,16 @@ def bin_columns(pos: jax.Array, box: Box, spec: BinSpec,
     sorted_all = jax.lax.sort(payloads, num_keys=3)
     sorted_cid, sz, order, sx, sy = sorted_all[:5]
     vals_t = jnp.stack(sorted_all[5:8], axis=0) if values is not None else None
-    starts, counts, rank_sorted, overflow = _cell_starts_counts(
-        sorted_cid, c_total, cap
-    )
+    rank_sorted, overflow = _cell_ranks(sorted_cid, cap)
     rank_clip = jnp.minimum(rank_sorted, cap - 1)
     rank_of = _invert_perm_payload(order, rank_sorted)
 
-    if _use_fill_kernel(n):
-        fill_v = vals_t if _use_fill_kernel(n, True) else None
-        fields = _fill_cells_pallas(
-            jnp.stack([sx, sy, sz], axis=0), order, starts, counts,
-            c_total, cap, n, values_t=fill_v,
-        )
-        px, py, pz, mask, pid = fields[:5]
-        fcells = fields[5] if fill_v is not None else (
-            _scatter_values(vals_t, sorted_cid, rank_clip, c_total, cap)
-            if values is not None else None
-        )
-    else:
-        px, py, pz, mask, pid = _scatter_fields(
-            jnp.stack([sx, sy, sz], axis=1), order, sorted_cid, rank_clip,
-            c_total, cap,
-        )
-        fcells = (_scatter_values(vals_t, sorted_cid, rank_clip, c_total,
-                                  cap) if values is not None else None)
+    px, py, pz, mask, pid = _scatter_fields(
+        jnp.stack([sx, sy, sz], axis=1), order, sorted_cid, rank_clip,
+        c_total, cap,
+    )
+    fcells = (_scatter_values(vals_t, sorted_cid, rank_clip, c_total, cap)
+              if values is not None else None)
 
     bins = CellBins(
         px=px, py=py, pz=pz, mask=mask, pid=pid,

@@ -9,9 +9,11 @@ Stokes.cu:234-365 + Brownian.cu:772-923):
 
 Two interchangeable engines compute the particle-space operators:
 
-  * "blocked" (default): cell-blocked dense math (ops/blocked_*) — stencil
-    rolls + batched GEMVs, no large gathers/scatters.  This is the TPU-fast
-    path; XLA's random gather/scatter serializes at ~0.11 G elem/s.
+  * "banded": z-sorted columns with a matrix-free near-field matvec
+    (ops/banded_nearfield: a Triton kernel on the GPU, the plain-XLA
+    reference on the CPU) and the z-column far field — the large-N path.
+  * "blocked" (API default): cell-blocked dense math (ops/blocked_*) —
+    stencil rolls + batched GEMVs, no large gathers/scatters.
   * "gather": the direct neighbor-list formulation (ops/nearfield,
     ops/farfield) — fewer FLOPs, fine on CPU and for small N; kept as the
     cross-validation reference for the blocked engine.
@@ -42,7 +44,7 @@ from .box import Box, wrap
 from .cellbins import bin_columns, bin_particles, vec_from_cells, vec_to_cells
 from .neighbors import NeighborSpec, build_neighbor_list
 from .params import PSEParams, gridk_arrays
-from .ops import farfield, lanczos, mxu_fft, nearfield, noise
+from .ops import farfield, lanczos, nearfield, noise
 from .ops import banded_nearfield as bdn
 from .ops import blocked_farfield as bff
 from .ops import blocked_nearfield as bnf
@@ -50,28 +52,27 @@ from .ops import column_farfield as cff
 from .ops.chebyshev import ChebPair, fit_pair_functions
 
 
-# Sticky-overflow bitmask (State.nbr_overflow): which capacity blew, so
-# grow_config enlarges only that one (a band-window overflow must not also
-# double m_max, and a cell-cap overflow must not widen the band window —
-# window growth doubles the A stream, the step's dominant cost).
 # Lanczos m shrink probe period: the warm-start floor runs >= m_start
 # iterations, so m alone is a RATCHET (the reference has the same one-way
 # behavior, Brownian.cu:604-736) — one transient spike makes every later
-# step pay the spiked iteration count (~1.33 ms/iteration at bench scale).
+# step pay the spiked iteration count (one near-field matvec each).
 # Every K-th step passes m_start-1 instead: if the convergence test passes
 # one iteration earlier, the persisted m drops (and can keep dropping on
 # later probes); if not, the step runs the same matvec count as before and
-# only pays one extra ~0.15 ms tridiagonal assembly.  K=16 bounds the
-# average probe cost at ~0.01 ms/step and the shrink latency at 16 steps
-# per level.
+# only pays one extra tridiagonal assembly.  K=16 bounds the shrink latency
+# at 16 steps per level.
 M_SHRINK_PERIOD = 16
+
+# Sticky-overflow bitmask (State.nbr_overflow): which capacity blew, so
+# grow_config enlarges only that one (a band-window overflow must not also
+# double m_max, and a cell-cap overflow must not widen the band window —
+# the near-field matvec's work scales with the window).
 
 OVF_NF = 1        # near-field cell/column capacity
 OVF_BAND = 2      # banded window width
 OVF_FF = 4        # far-field cell capacity
 OVF_LANCZOS = 8   # Lanczos m_max hit unconverged
 OVF_NBR = 16      # gather-engine neighbor capacity
-OVF_CLASS = 32    # banded occupancy-class capacities (falls back to 1 class)
 
 
 def _ovf(flag, bit: int):
@@ -119,10 +120,6 @@ class StepConfig:
     has_forces: bool = True                # compile the deterministic M·F path
     band_spec: Optional[bdn.BandSpec] = None
     colff_spec: Optional[cff.ColFfSpec] = None   # z-column far field (preferred)
-    shard_slabs: int = 1                   # halo x-slab count the config was
-                                           # built for (sizes slab_classes;
-                                           # recorded so regrow paths can
-                                           # re-measure per-slab classes)
 
     def __post_init__(self):
         # Invariant: a step must compile at least one of the two branches.
@@ -140,30 +137,8 @@ class StepConfig:
         return hash(
             (self.params, self.nbr_spec, self.thermal, self.m_max, self.seed,
              self.engine, self.nf_spec, self.ff_spec, self.has_forces,
-             self.band_spec, self.colff_spec, self.shard_slabs)
+             self.band_spec, self.colff_spec)
         )
-
-
-def _size_slab_classes(band_spec, shard_slabs, n_particles, counts):
-    """Per-shard occupancy classes for the halo engine: sized on the
-    EXTENDED local slab grid ((ncx/D + 2 halo layers)·ncy columns) to cover
-    the worst slab — capacities are static and shard-uniform under SPMD
-    (parallel/halo.py moves these into the local spec's ``classes``).
-    Computed for shard_slabs=1 too: a D=1 halo mesh
-    (tools/check_halo_tpu.py) then exercises the same packed-kernel path
-    multi-chip runs take.  ``counts``: global measured column histogram or
-    None (Poisson model)."""
-    ncx, ncy, _ = band_spec.bins.n_cells
-    nxl = ncx // shard_slabs
-    loc = band_spec._replace(
-        bins=band_spec.bins._replace(n_cells=(nxl + 2, ncy, 1)),
-        classes=None,              # single-chip classes are global-grid
-    )
-    slab_counts = (None if counts is None else
-                   bdn.make_slab_counts(band_spec, shard_slabs, counts))
-    n_loc = int(round(n_particles * (nxl + 2) / ncx))
-    loc = bdn.make_band_classes(loc, n_loc, slab_counts)
-    return band_spec._replace(slab_classes=loc.classes)
 
 
 def make_config(
@@ -180,25 +155,22 @@ def make_config(
     shard_slabs: int = 1,
     ff_weight_dtype: str | None = None,
     nbr_subdiv: int = 1,
-    positions=None,
 ) -> StepConfig:
-    """Build a StepConfig, choosing blocked-engine shapes from the density.
+    """Build a StepConfig, choosing engine shapes from the density.
 
-    Falls back to the gather engine when the box/grid is too small to block.
-
-    ``positions``: optional (N, 3) host array of the initial configuration —
-    when given, the banded engine's occupancy classes are sized from the
-    MEASURED column-occupancy histogram instead of a Poisson model
-    (structured densities like lattices have occupancy spreads several
-    times Poisson; mis-sized classes cost an overflow recompile).
+    Falls back banded -> blocked -> gather when the box/grid is too small.
+    ``shard_slabs``: round the banded column grid to this many x-slabs
+    (parallel/halo.py shards one slab per device).
     """
     from .neighbors import make_spec
 
     if block_dtype is None:
-        # bf16 pair blocks deliver ~5e-4 relative accuracy on U = M·F
-        # (measured; f32 self term + f32 accumulation dominate), 38% faster
-        # than f32 on v5e.  Honor a stricter user-requested error with f32
-        # blocks instead of silently capping accuracy at the bf16 floor.
+        # bf16 pair blocks (blocked engine) deliver ~5e-4 relative accuracy
+        # on U = M·F (f32 self term + f32 accumulation dominate): within
+        # error >= 1e-3.  A stricter requested error gets f32 blocks
+        # instead of a silent cap at the bf16 floor.  The banded engine
+        # stores no blocks; block_dtype only sets its pair-function fit
+        # tolerance (_cheb_tol).
         block_dtype = "bfloat16" if params.error >= 1e-3 else "float32"
     elif block_dtype == "bfloat16" and params.error < 1e-3:
         import warnings
@@ -223,18 +195,8 @@ def make_config(
         ff_spec = bff.make_ff_spec(params, n_particles, ff_weight_dtype)
         band_spec = bdn.make_band_spec(
             n_particles, params.L, params.ewald_cut, max_tilt=max_tilt,
-            block_dtype=block_dtype, ncx_multiple=shard_slabs,
+            ncx_multiple=shard_slabs,
         )
-        if band_spec is not None:
-            counts = None
-            if positions is not None:
-                counts = bdn.measure_col_counts(band_spec, positions, params.L)
-            if shard_slabs == 1:
-                # Occupancy-class packed A (single-chip)
-                band_spec = bdn.make_band_classes(band_spec, n_particles,
-                                                  counts)
-            band_spec = _size_slab_classes(band_spec, shard_slabs,
-                                           n_particles, counts)
         if ff_spec is None or band_spec is None:
             engine = "blocked"                 # geometry too small to band
             ff_spec = band_spec = None
@@ -274,15 +236,14 @@ def make_config(
         params=params, nbr_spec=nbr_spec, thermal=thermal, m_max=m_max,
         seed=seed, engine=engine, nf_spec=nf_spec, ff_spec=ff_spec, cheb=cheb,
         has_forces=has_forces, band_spec=band_spec, colff_spec=colff_spec,
-        shard_slabs=shard_slabs,
     )
 
 
 def _cheb_tol(block_dtype: str) -> float:
-    """Pair-function fit tolerance matched to the block dtype: bf16 blocks
-    quantize every entry at ~4e-3 relative anyway, so a 3e-5 absolute fit
-    (typically degree 8 instead of 12) adds nothing measurable end-to-end
-    while cutting the build kernel's dominant Clenshaw cost ~30%."""
+    """Pair-function fit tolerance matched to the accuracy class: at
+    error >= 1e-3 (bf16 blocks quantize every entry at ~4e-3 relative) a
+    3e-5 absolute fit (typically degree 8 instead of 12) adds nothing
+    measurable end-to-end and cuts the Clenshaw work per pair."""
     return 3e-5 if block_dtype == "bfloat16" else 1e-6
 
 
@@ -292,15 +253,14 @@ def grow_config(
     """Enlarge the capacities named by the overflow bitmask ``flags``
     (State.nbr_overflow; None grows everything) — host-side; recompiles.
 
-    Selective growth matters: widening the band window doubles the A
-    stream (the step's dominant cost) and doubling m_max inflates every
-    Lanczos eigh, so a far-field cell-cap overflow must not trigger them.
+    Selective growth matters: widening the band window grows every
+    near-field matvec and doubling m_max inflates every Lanczos eigh, so a
+    far-field cell-cap overflow must not trigger them.
     """
     from .neighbors import grow_spec
 
     if flags is None:
-        flags = (OVF_NF | OVF_BAND | OVF_FF | OVF_LANCZOS | OVF_NBR
-                 | OVF_CLASS)
+        flags = OVF_NF | OVF_BAND | OVF_FF | OVF_LANCZOS | OVF_NBR
     flags = int(flags)
 
     changes = {}
@@ -326,30 +286,16 @@ def grow_config(
         changes["colff_spec"] = config.colff_spec._replace(
             bins=bins._replace(cap=int(-(-bins.cap * factor // 8)) * 8)
         )
-    if (flags & OVF_CLASS and config.band_spec is not None
-            and (config.band_spec.classes is not None
-                 or config.band_spec.slab_classes is not None)):
-        # Class-capacity overflow (more high-occupancy columns than the
-        # upper classes hold — a >=5sigma event at the chooser's margins):
-        # drop back to the always-safe single class.  (The band-growth
-        # block below also drops classes: a changed cap/rows invalidates
-        # the per-class tile counts.)
-        changes["band_spec"] = config.band_spec._replace(
-            classes=None, slab_classes=None
-        )
     if config.band_spec is not None and flags & (OVF_NF | OVF_BAND):
         bs = config.band_spec
         rows, window = bs.rows, bs.window
         cap = bs.bins.cap
         if flags & OVF_BAND:
-            # Preserve the make_band_spec invariant the kernels were
-            # validated under: window <= 256 and cap >= window.  Widening
-            # the window while KEEPING rows=32 measured faster than
-            # shrinking the row tile (W=192/R=32 beats W=128/R=16 ~10% at
-            # bench scale, tools/bench_matvec.py) — rows=32's halved
-            # per-tile overhead outweighs +50% A bytes.  Shrink rows only
-            # when the validated limits block widening (a persistent
-            # overflow then surfaces via Simulation.run's retry limit).
+            # Preserve the make_band_spec invariant: window <= 256 and
+            # cap >= window.  Widen the window first and keep the row
+            # tile; shrink rows only when the limits block widening (a
+            # persistent overflow then surfaces via Simulation.run's
+            # retry limit).
             if window + 64 <= 256 and cap >= window + 64:
                 window += 64
             elif rows > 16:
@@ -359,7 +305,6 @@ def grow_config(
         cap = max(-(-cap // rows) * rows, window)
         changes["band_spec"] = bs._replace(
             bins=bs.bins._replace(cap=cap), rows=rows, window=window,
-            classes=None, slab_classes=None,
         )
     return dataclasses.replace(config, **changes)
 
@@ -404,37 +349,18 @@ class _BandedCtx(NamedTuple):
     ff_bins: object
     j0: jax.Array          # (O, C, T) i32 band window starts
     n_valid: jax.Array     # (C,) i32 occupied slots per column
-    zsh: jax.Array         # (O, C, T) f32 window z-image shifts
-    blocks: object         # (1, C, 2, S, 5W) pair coefficients (None off-TPU;
-                           #  per-class tuple when spec.classes is set)
-    pos_cyc: object        # (C, 5, 3, SEXT) prefolded coords (None off-TPU;
-                           #  per-class tuple when spec.classes is set)
-    own_pos: object        # (C, R, T*8) own coords (None off-TPU; per-class
-                           #  tuple of permuted copies when classes are set)
     ff_weights: object
-    tilt: jax.Array        # () f32 box tilt (reference matvec needs it)
-    cls: object = None     # (perm, inv) occupancy-class packing, or None
+    tilt: jax.Array        # () f32 box tilt
     nf_f: object = None    # (3, C, cap) forces binned with the positions
     ff_f: object = None    # (3, C_ff, cap_ff) ditto on the far-field grid
 
 
-def _pallas_interpret() -> bool:
-    """Run the Pallas kernels interpreted off-TPU (CPU tests, dryruns)."""
-    return jax.default_backend() != "tpu"
-
-
 def _rfft3(grid):
-    """Forward 3-D rfft over axes (1,2,3): MXU matmul-DFT on TPU (XLA's TPU
-    FFT is ~40x off the streaming bound — ops/mxu_fft.py), jnp.fft off-TPU
-    (keeps the CPU suite on an independent FFT implementation)."""
-    if jax.default_backend() == "tpu":
-        return mxu_fft.rfft3_mxu(grid)
+    """Forward 3-D rfft over axes (1,2,3) (cuFFT on the GPU)."""
     return jnp.fft.rfftn(grid, axes=(1, 2, 3))
 
 
 def _irfft3(ghat, s):
-    if jax.default_backend() == "tpu":
-        return mxu_fft.irfft3_mxu(ghat, s)
     return jnp.fft.irfftn(ghat, s=s, axes=(1, 2, 3))
 
 
@@ -484,7 +410,7 @@ def _ff_spread(config, ctx, box, forces):
     else:
         f_cells = vec_to_cells(ctx.ff_bins, _ff_bin_spec(config), forces)
     if config.colff_spec is not None:
-        return cff.spread_col_auto(
+        return cff.spread_col(
             ctx.ff_bins, f_cells, box, config.colff_spec, config.params,
             ctx.ff_weights,
         )
@@ -498,7 +424,7 @@ def _ff_contract(config, ctx, box, grid_v):
     """Velocity grid -> particle velocities (N, 3)."""
     if config.colff_spec is not None:
         spec = config.colff_spec
-        u_cells = cff.contract_col_auto(
+        u_cells = cff.contract_col(
             ctx.ff_bins, grid_v, box, spec, config.params, ctx.ff_weights
         )
         return vec_from_cells(ctx.ff_bins, spec.bins, u_cells)
@@ -529,8 +455,8 @@ def _prepare_blocked(config, pos, box, forces=None):
 def _bin_both(config, pos, box, nf_binspec, nf_binner, forces):
     """The two per-step binnings (near-field layout + far-field grid),
     with the step's forces riding each binning sort when given — the
-    slot-layout force arrays then cost three fill-kernel output rows
-    instead of one ~0.97 ms N-row XLA scatter EACH (vec_to_cells)."""
+    slot-layout force arrays then come out of the binnings' own scatters
+    instead of a separate N-row scatter each (vec_to_cells)."""
     if forces is None:
         nf_bins = nf_binner(pos, box, nf_binspec)
         ff_bins = bin_particles(pos, box, _ff_bin_spec(config))
@@ -547,42 +473,18 @@ def _prepare_banded(config, pos, box, forces=None):
     nf_bins, ff_bins, nf_f, ff_f = _bin_both(
         config, pos, box, bs.bins, bin_columns, forces
     )
-    # Off-TPU the matvec runs the pure-XLA reference (gathers are fast on
-    # CPU; interpret-mode Pallas costs minutes of compile per config), so
-    # the pair blocks are only built for real Mosaic execution — and the
-    # kernels only read the stored half-stencil's windows.
-    offs = bs.offsets if _pallas_interpret() else bs.offsets[:bdn.N_HALF]
-    j0, n_valid, band_overflow, zsh = bdn.compute_windows(
-        nf_bins, bs, box, p.ewald_cut, offsets=offs
+    j0, n_valid, band_overflow = bdn.compute_windows(
+        nf_bins, bs, box, p.ewald_cut
     )
-    # blocks/pos_cyc stay None until the engine's build_mv: the build is
-    # FUSED with the step's first near-field matvec (bdn.build_mv_banded)
-    # so that matvec never re-reads the A stream from HBM.
-    blocks = pos_cyc = own_pos = cls = None
-    class_overflow = jnp.asarray(False)
-    if not _pallas_interpret():
-        own_pos = bdn.make_own_pos(nf_bins, bs)
-        if bs.classes is not None:
-            # Occupancy-class packing: sort columns by tile need so the A
-            # stream / build skip the all-pad tail tiles (ops/
-            # banded_nearfield.make_band_classes).
-            perm, inv, class_overflow = bdn.class_assignment(bs, n_valid)
-            cls = (perm, inv)
-            own_pos = tuple(
-                jnp.take(own_pos, perm[off:off + ck], axis=0)
-                for (tk, ck, off) in bdn.class_segments(bs)
-            )
     ff_weights = _ff_shared(config, ff_bins, box)
     overflow = (
         _ovf(nf_bins.overflow, OVF_NF)
         | _ovf(ff_bins.overflow, OVF_FF)
         | _ovf(band_overflow, OVF_BAND)
-        | _ovf(class_overflow, OVF_CLASS)
     )
     return (
-        _BandedCtx(nf_bins, ff_bins, j0, n_valid, zsh, blocks, pos_cyc,
-                   own_pos, ff_weights,
-                   jnp.asarray(box.tilt_xy, jnp.float32), cls, nf_f, ff_f),
+        _BandedCtx(nf_bins, ff_bins, j0, n_valid, ff_weights,
+                   jnp.asarray(box.tilt_xy, jnp.float32), nf_f, ff_f),
         overflow,
     )
 
@@ -623,62 +525,21 @@ def _engine(config: StepConfig):
             return values.T                                 # (3, N)
     elif config.engine == "banded":
         bs = config.band_spec
-
-        def _nf_matvec(ctx, cells):
-            if _pallas_interpret():
-                return bdn.matvec_banded_reference(
-                    ctx.nf_bins, ctx.tilt, bs, config.cheb, p.L,
-                    p.ewald_cut, p.ewald_dr, ctx.j0, ctx.n_valid, cells,
-                    p.self_mobility,
-                )
-            return bdn.matvec_banded(
-                ctx.blocks, ctx.pos_cyc, ctx.own_pos, ctx.j0, ctx.n_valid,
-                ctx.zsh, bs, cells, p.self_mobility, p.L, pack=ctx.cls,
-            )
+        nf_matvec = banded_matvec(config, bdn.select_nf_impl())
 
         def mreal_t(ctx, cells):
-            # native (3, C, cap) in and out — no reshape, so XLA inserts no
-            # retiling copy around the Pallas matvec custom call
-            return _nf_matvec(ctx, cells)
-
-        def mreal_t2(ctx, cells):
-            """(6, C, cap) two-RHS matvec sharing one A stream (the fused
-            M·F + first-Lanczos-matvec path of step_impl)."""
-            if _pallas_interpret():
-                return jnp.concatenate(
-                    [_nf_matvec(ctx, cells[0:3]), _nf_matvec(ctx, cells[3:6])],
-                    axis=0,
-                )
-            return bdn.matvec_banded(
-                ctx.blocks, ctx.pos_cyc, ctx.own_pos, ctx.j0,
-                ctx.n_valid, ctx.zsh, bs, cells, p.self_mobility, p.L,
-                pack=ctx.cls,
-            )
+            """(3·nrhs, C, cap) -> same, nrhs <= 2: one pair evaluation
+            serves both right-hand sides (step_impl's fused M·F path)."""
+            return nf_matvec(ctx.nf_bins, ctx.tilt, bs, ctx.j0, ctx.n_valid,
+                             cells)
 
         def f_slots_t(ctx, values):
             """(N, 3) particle values -> (3, C, cap) slot layout."""
             return vec_to_cells(ctx.nf_bins, bs.bins, values)
 
-        def build_mv(ctx, ft):
-            """Fused pair-coefficient build + matvec: fills ctx.blocks /
-            ctx.pos_cyc and returns (ctx, M·ft) with the first matvec's
-            A re-read eliminated (bdn.build_mv_banded).  Off-TPU the
-            reference path rebuilds pair functions per matvec anyway, so
-            plain matvecs serve."""
-            if _pallas_interpret():
-                u = (_nf_matvec(ctx, ft) if ft.shape[0] == 3
-                     else mreal_t2(ctx, ft))
-                return ctx, u
-            blocks, pos_cyc, u = bdn.build_mv_banded(
-                ctx.nf_bins, ctx.tilt, bs, config.cheb, p.L, p.ewald_cut,
-                p.ewald_dr, ctx.j0, ctx.n_valid, ctx.zsh, ctx.own_pos,
-                ft, p.self_mobility, pack=ctx.cls,
-            )
-            return ctx._replace(blocks=blocks, pos_cyc=pos_cyc), u
-
         def mreal_particles(ctx, forces):
             cells = vec_to_cells(ctx.nf_bins, bs.bins, forces)
-            return vec_from_cells(ctx.nf_bins, bs.bins, _nf_matvec(ctx, cells))
+            return vec_from_cells(ctx.nf_bins, bs.bins, mreal_t(ctx, cells))
 
         def spread(ctx, box, forces):
             return _ff_spread(config, ctx, box, forces)
@@ -749,13 +610,35 @@ def _engine(config: StepConfig):
     # mobility_impl prefer this over the f_slots_t scatter
     e.prepared_f = lambda ctx: getattr(ctx, "nf_f", None)
     if config.engine == "banded":
-        e.mreal_t2 = mreal_t2
-        e.build_mv = build_mv
-    else:
-        # no fused build+matvec: prepare already built everything, so the
-        # step's first matvec is a plain mreal_t (identical semantics)
-        e.build_mv = lambda ctx, ft: (ctx, mreal_t(ctx, ft))
+        e.mreal_t2 = mreal_t                         # takes 2 stacked RHS
     return e
+
+
+def banded_matvec(config: StepConfig, impl: str):
+    """The banded near-field matvec for implementation ``impl``
+    (bdn.NF_TRITON or bdn.NF_REFERENCE): a function
+    (bins, tilt, spec, j0, n_valid, f (3·nrhs, C, S)) -> u, with the
+    physics constants of ``config`` bound.  ``spec`` is passed per call so
+    the halo engine can run it on its slab-local grid."""
+    p = config.params
+    consts = (config.cheb, p.L, p.ewald_cut, p.ewald_dr)
+    if impl == bdn.NF_TRITON:
+        def matvec(bins, tilt, spec, j0, n_valid, cells):
+            return bdn.matvec_banded(bins, tilt, spec, *consts, j0, n_valid,
+                                     cells, p.self_mobility)
+    elif impl == bdn.NF_REFERENCE:
+        def matvec(bins, tilt, spec, j0, n_valid, cells):
+            # the reference is single-RHS: one call per stacked 3-row block
+            return jnp.concatenate([
+                bdn.matvec_banded_reference(
+                    bins, tilt, spec, *consts, j0, n_valid, cells[r:r + 3],
+                    p.self_mobility,
+                )
+                for r in range(0, cells.shape[0], 3)
+            ], axis=0)
+    else:
+        raise ValueError(f"unknown banded near-field implementation {impl!r}")
+    return matvec
 
 
 # ---------------------------------------------------------------------------
@@ -790,7 +673,7 @@ def mobility_impl(config: StepConfig, eng, pos, forces, tilt_xy=0.0):
     box = _box_of(config, tilt_xy)
 
     ctx, overflow = eng.prepare(config, pos, box, forces)
-    ctx, u0 = eng.build_mv(ctx, _f_cells(eng, ctx, forces))
+    u0 = eng.mreal_t(ctx, _f_cells(eng, ctx, forces))
     u_real = eng.psi_result_to_particles(ctx, u0)
 
     kvec, W = gridk_arrays(p, box.tilt_xy, half=True)
@@ -829,7 +712,7 @@ def brownian_displacement(config: StepConfig, pos, tilt_xy, step, m_start, T, dt
 
     psi = eng.slots_of_psi(ctx, k_psi, pos.shape[0])
     vnorm = jnp.sqrt(jnp.sum(psi * psi))       # matches sqrt_mreal's v₀
-    ctx, w0 = eng.build_mv(ctx, psi / vnorm)
+    w0 = eng.mreal_t(ctx, psi / vnorm)
     u_sqrt, m_used, hit_cap = lanczos.sqrt_mreal(
         lambda vt: eng.mreal_t(ctx, vt), psi, p.error, m_start,
         config.m_max, w0=w0,
@@ -922,14 +805,10 @@ def step_impl(
         u = eng.contract(ctx, box, grid_v.astype(jnp.float32))
 
     # --- real space: deterministic matvec (+ Lanczos noise) ----------------
-    # The step's FIRST near-field matvec rides the engine's build_mv: on
-    # the banded engine that is the fused build+matvec kernel, so the
-    # pair-coefficient build writes A and applies it in one pass — that
-    # matvec never re-reads the A stream (the step's dominant HBM
-    # traffic).  With forces AND thermal the deterministic M·F rides the
-    # same call as a second RHS: ONE A pass covers build + M·F + the
-    # first Lanczos matvec.  v₀ normalization matches lanczos.sqrt_mreal
-    # exactly (same expression, same trace).
+    # With forces AND thermal on the banded engine the deterministic M·F
+    # rides the step's first Lanczos matvec as a second RHS: one pair
+    # evaluation covers both.  v₀ normalization matches
+    # lanczos.sqrt_mreal exactly (same expression, same trace).
     fuse2 = (
         config.has_forces
         and config.thermal
@@ -946,7 +825,7 @@ def step_impl(
                 )
             else:
                 ft = psi / vnorm
-            ctx, u0 = eng.build_mv(ctx, ft)
+            u0 = (eng.mreal_t2 if fuse2 else eng.mreal_t)(ctx, ft)
             if fuse2:
                 u = u + eng.psi_result_to_particles(ctx, u0[0:3])
                 w0 = u0[3:6]
@@ -983,7 +862,7 @@ def step_impl(
         u = u + jnp.sqrt(2.0 * T / dt) * eng.psi_result_to_particles(ctx, u_sqrt)
     elif config.has_forces:
         with jax.named_scope("pse_nearfield"):
-            ctx, uF = eng.build_mv(ctx, _f_cells(eng, ctx, forces))
+            uF = eng.mreal_t(ctx, _f_cells(eng, ctx, forces))
             u = u + eng.psi_result_to_particles(ctx, uF)
 
     # --- Euler update with shear advection + PBC wrap ----------------------

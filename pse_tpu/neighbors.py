@@ -1,4 +1,4 @@
-"""Cell-list neighbor search with fixed-capacity arrays (TPU-friendly).
+"""Cell-list neighbor search with fixed-capacity (static-shape) arrays.
 
 Replaces HOOMD's CellListGPU + NeighborListGPUBinned (reference
 integrate.py:58-82, rebuilt every step via ``setEvery(1, True)``).  The
@@ -37,7 +37,7 @@ class NeighborSpec(NamedTuple):
     cell_capacity: int
     max_neighbors: int
     # Cells per rcut: 1 = classic 27-stencil of rcut-sized cells; k > 1 =
-    # cells of side >= rcut/k searched with a (2k+1)^3 stencil — the TPU
+    # cells of side >= rcut/k searched with a (2k+1)^3 stencil — the
     # analogue of the reference's CellListStencil backend
     # (integrate.py:69-74): tighter candidate sets (the stencil volume
     # over-covers the rcut sphere ~6.4x at k=1 but ~3.7x at k=2) at the
@@ -204,8 +204,8 @@ def build_neighbor_list(pos: jax.Array, box: Box, spec: NeighborSpec) -> Neighbo
     nbr_cids = (nbr_cells[..., 0] * ncy + nbr_cells[..., 1]) * ncz + nbr_cells[..., 2]
     cand = cell_table[nbr_cids].reshape(n, n_stencil * cap)
 
-    # Component-wise (SoA) distance check: a (n, 27*cap, 3) intermediate
-    # would be tile-padded 3 -> 128 on TPU.
+    # Component-wise (SoA) distance check: no (n, 27*cap, 3) intermediate
+    # with a 3-wide minor dimension.
     pos_pad_t = jnp.concatenate([pos, jnp.zeros((1, 3), pos.dtype)], axis=0).T
     dx = pos[:, 0][:, None] - pos_pad_t[0][cand]
     dy = pos[:, 1][:, None] - pos_pad_t[1][cand]

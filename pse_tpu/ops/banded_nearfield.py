@@ -1,44 +1,33 @@
-"""Banded near-field: z-sorted columns + rank-band mobility blocks (Pallas).
+"""Banded near-field: z-sorted columns, rank-band windows, matrix-free matvec.
 
-Third-generation TPU design of the neighbor-list matvec
-(gpu_stokes_Mreal_kernel, Mobility.cu:594-687), superseding the dense
-cell-blocked formulation (ops/blocked_nearfield.py) on the hot path.
+GPU design of the neighbor-list matvec (gpu_stokes_Mreal_kernel,
+Mobility.cu:594-687).  After sorting each (x, y) column of particles by z,
+the partners of a particle within ``rcut`` occupy a CONTIGUOUS RANK BAND of
+each neighboring column.  So the interactions between a row tile of column c
+and column c' = c + o are one (rows x W) window whose W lanes start at a
+per-(offset, column, tile) rank ``j0`` computed from the sorted z values
+(compute_windows).
 
-The dense (cap x cap) cell-pair blocks measure ~90% zeros (mask padding x
-out-of-range pairs), and streaming them dominates the step (~85% of device
-time at N=100k).  This module exploits the one geometric fact a dense layout
-can express cheaply: after sorting each (x, y) column of particles by z, the
-partners of a particle within ``rcut`` occupy a CONTIGUOUS RANK BAND of each
-neighboring column.  So the mobility between a 16-row tile of column c and
-column c' is a single (16 x 128) block whose 128 columns start at a
-per-(tile, column-pair) window offset j0 computed from the sorted z values.
-
-Storage per matvec drops from noff*cap/128-ish dense waste to
-    A: (1, C, 2, cap, N_HALF*W)   [bfloat16]
-— only the half stencil ((0,0) + 4 positive offsets, applied forward AND
-transposed from one stream) and only TWO coefficients per pair
-(imrr, bco/d²): the dyadic ddᵀ part of each 3x3 block is rebuilt in the
-matvec kernel from the z-sorted coordinates (exact f32 geometry).  ~18x
-less HBM traffic than the dense engine at bench scale, with the window
-slack (density fluctuations) the only remaining overcompute.
+Like the reference, the matvec re-evaluates the pair functions on every
+call instead of storing pair blocks: each program of the Triton kernel
+(matvec_banded) owns one (column, row tile), walks the 9 xy stencil offsets
+and the window in 32-lane chunks, gathers the window's coordinates and
+forces, evaluates the piecewise-Chebyshev pair functions (ops/chebyshev.py)
+in registers and reduces the 3x3 blocks against 1 or 2 right-hand sides.
+Every output tile is written once by its own program (forward stencil only,
+no atomics), so results are bitwise reproducible per (seed, step).
 
 Layout contract (all built by cellbins.bin_columns):
   * columns are (x, y) cells >= rcut wide (x tilt-inflated), z-sorted;
   * padded slots sort last (mask 0, positions 0);
-  * the window indexes an EXTENDED slot axis of length cap + W whose tail
-    repeats slots [0, W) — a z-band that wraps the periodic box stays
-    contiguous in extended coordinates (min-image handles the physics).
+  * window lanes are CYCLIC ranks of the neighbor column: rank k < n_valid
+    is slot k, rank n_valid + k is slot k one period up, so a z-band that
+    wraps the periodic box stays contiguous (minimum image handles the
+    physics).
 
-Kernels (Pallas, forward-only full stencil):
-  * build_banded_blocks (grid = (offset, column)): per tile, window geometry
-    + piecewise-Chebyshev pair functions (ops/chebyshev.py) -> 6 symmetric
-    tensor components.
-  * matvec_banded (grid = (column, offset) — offsets INNER so each column's
-    result accumulates in a VMEM scratch): stream A once; u(tile) +=
-    sum_w A . f(window), with f and u resident in VMEM for the whole sweep,
-    lane reductions on the MXU via a ones contraction.
-
-Window coverage is checked at build time (compute_windows): any band wider
+matvec_banded_reference is the plain-XLA implementation of the same
+semantics: the CPU execution path and the oracle the kernel is tested
+against.  Window coverage is checked in compute_windows: any band wider
 than W sets a sticky overflow flag, reusing the rewind+regrow machinery of
 the other engines (api.Simulation.run).
 """
@@ -49,30 +38,47 @@ import math
 from functools import partial
 from typing import NamedTuple
 
+import numpy as np
+
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
 from ..box import Box
 from ..cellbins import BinSpec, CellBins, roll_cells
 from .chebyshev import ChebPair, eval_pair_functions
 
+# Near-field implementations, chosen per platform by select_nf_impl.
+NF_TRITON = "triton"          # Pallas kernel compiled through Triton (GPU)
+NF_REFERENCE = "reference"    # plain-XLA matvec_banded_reference (CPU)
 
-N_HALF = 5     # stored offsets: (0,0) + the lexicographically-positive half
+# Kernel launch shape, measured per call at the N=100k phi=0.45 bench
+# geometry on one H100 (PERF.md): 32-lane chunks with 8 warps beat 64-lane
+# chunks with 4 warps 1.43x (1 RHS) and 1.63x (2 RHS) — a (32 x 32) tile
+# keeps the pair math in registers.
+LANE_CHUNK = 32               # window lanes per kernel inner iteration
+NUM_WARPS = 8
+
+
+def select_nf_impl(platform: str | None = None) -> str:
+    """The banded near-field implementation for ``platform`` (default: JAX's
+    default backend): the Triton kernel on "gpu", the plain-XLA reference on
+    "cpu".  Any other platform is an error, never a silent fallback."""
+    if platform is None:
+        platform = jax.default_backend()
+    if platform == "gpu":
+        return NF_TRITON
+    if platform == "cpu":
+        return NF_REFERENCE
+    raise ValueError(
+        f"no banded near-field implementation for platform {platform!r} "
+        "(supported: 'gpu', 'cpu')"
+    )
 
 
 def full_xy_offsets():
-    """(0,0) first, then the positive half-stencil, then its mirrors in
-    matching order (offsets[5+i] == -offsets[1+i]).
-
-    The Pallas kernels store/build ONLY the first N_HALF offsets — the
-    mobility pair block between columns c and c+h is symmetric under
-    exchange (M_ji = M_ij: imrr/bco depend on |r| and êêᵀ is even in ê,
-    Mobility.cu:594-687 pair symmetry), so the mirror offsets apply as
-    in-kernel transposes of the stored blocks.  The mirror entries stay in
-    the tuple for the pure-XLA reference matvec and the window tables.
-    """
+    """The 3x3 xy stencil, (0,0) first."""
     half = [(0, 1), (1, -1), (1, 0), (1, 1)]
     return tuple([(0, 0)] + half + [(-ox, -oy) for (ox, oy) in half])
 
@@ -82,22 +88,8 @@ class BandSpec(NamedTuple):
 
     bins: BinSpec            # n_cells = (ncx, ncy, 1); cap = slots per column
     offsets: tuple           # xy stencil offsets, (0, 0) first
-    window: int              # W — band window width (multiple of 128)
-    rows: int                # R — row-tile height (multiple of 8)
-    block_dtype: str = "bfloat16"
-    # Occupancy classes ((tiles_k, ncols_k), ...) ascending by tiles, summing
-    # to C, last tiles_k == cap//rows: columns are packed per step into the
-    # smallest class whose tile count covers ceil(n_valid/rows), so the A
-    # stream and the build evaluation skip the all-pad tail tiles the 4-sigma
-    # cap slack forces on the AVERAGE column (~15 of 18 tiles real at bench
-    # scale).  None = single class (off-TPU, small configs).
-    classes: tuple | None = None
-    # Occupancy classes for the PER-SHARD extended slab grid of the halo
-    # engine (parallel/halo.py): sized over every slab's (nxl+2)*ncy local
-    # columns (capacities must be static and identical across shards —
-    # SPMD), moved into the local spec's ``classes`` by make_halo_engine.
-    # None = halo shards run a single class.
-    slab_classes: tuple | None = None
+    window: int              # W — band window width (multiple of 64, <= 256)
+    rows: int                # R — row-tile height (power of two)
 
 
 def make_band_spec(
@@ -105,7 +97,6 @@ def make_band_spec(
     L,
     rcut: float,
     max_tilt: float = 0.5,
-    block_dtype: str = "bfloat16",
     rows: int = 32,
     ncx_multiple: int = 1,
 ) -> BandSpec | None:
@@ -127,33 +118,23 @@ def make_band_spec(
 
     # Expected band: ranks within 2*rcut of z, plus the tile extent, plus
     # slack for occupancy fluctuations between neighboring columns
-    # (~5 sigma + 10).  Windows are multiples of 64: A bytes, build
-    # evaluation, and matvec VPU work all scale with W, so a 64-lane
-    # window at high xi / tall boxes is a ~1.6x lever.
+    # (~5 sigma + 10).  Windows are multiples of 64: the matvec's pair
+    # evaluations scale with W.
     band = 2.0 * rcut / L[2] * mu
 
     def w_of(r):
         need = band + r + 5.0 * math.sqrt(max(band, 1.0)) + 10.0
         w = max(64, int(math.ceil(need / 64.0)) * 64)
         # A window that only just fits trips the per-step band fluctuation
-        # check (band > W, compute_windows) and regrows mid-run — the
-        # estimate already carries 5σ slack, so demand a further ~10-lane
-        # margin before accepting a size (measured: margin 4 at ξ=0.75
-        # bench scale overflows within a few rebins; margin ≥ 12 is quiet).
+        # check (band > W, compute_windows) and regrows mid-run; demand a
+        # further ~10-lane margin before accepting a size.
         if w - need < 10.0:
             w += 64
         return w, need
 
-    # rows=32 halves the tile count and wins decisively on the matvec
-    # (interleaved A/B, tools/bench_matvec.py --rows 16:128,32:192,32:128
-    # at bench scale: R=32/W=128 2.18 ms, R=32/W=192 3.08 ms, R=16/W=128
-    # 3.44 ms) — even paying +50% A bytes for the wider window R=32 beats
-    # R=16.  So: take rows=32 at the rows=16 window whenever the 5-sigma
-    # need still fits it (one 64-lane step saved; j0 is unquantized so the
-    # overflow check is exactly band > W), else at its own window;
-    # grow_config's widen-window-first fallback keeps rows=32 if the
-    # margin gamble loses (one recompile, landing on the safe wider
-    # window).
+    # rows=32 takes the rows=16 window whenever the 5-sigma need still fits
+    # it (one 64-lane chunk saved per tile); grow_config's
+    # widen-window-first fallback handles the case where the margin loses.
     if rows == 32:
         w16, _ = w_of(16)
         window, need = w_of(32)
@@ -162,9 +143,8 @@ def make_band_spec(
     else:
         window, _ = w_of(rows)
 
-    # 4-sigma Poisson slack: A traffic scales with cap, and overflow is
-    # recoverable (sticky flag -> regrow), so the tail can be tighter than
-    # the unrecoverable-era 5 sigma.
+    # 4-sigma Poisson slack: overflow is recoverable (sticky flag ->
+    # regrow), so the tail can be tighter than 5 sigma.
     cap = int(math.ceil((mu + 4.0 * math.sqrt(mu) + 8.0) / rows)) * rows
     if window > 256 or cap < window:
         return None                            # banded layout not profitable
@@ -173,210 +153,11 @@ def make_band_spec(
         offsets=full_xy_offsets(),
         window=window,
         rows=rows,
-        block_dtype=block_dtype,
     )
-
-
-def measure_col_counts(spec: BandSpec, pos, L, tilt=0.0) -> "np.ndarray":
-    """Measured per-column occupancy — host-side numpy (no device round
-    trip; used at CONFIG time to size occupancy classes).
-
-    ``tilt``: the box xy-tilt at measurement time.  Config-time calls leave
-    it 0; the OVF_CLASS regrow path re-measures MID-RUN from current
-    positions, where a sheared box misassigns columns near the x seam
-    unless the tilt enters the fractional map (box.make_fraction parity).
-    """
-    import numpy as np
-
-    ncx, ncy, _ = spec.bins.n_cells
-    L = tuple(float(x) for x in L)
-    p = np.asarray(pos, np.float64)
-    fx = np.mod((p[:, 0] - float(tilt) * p[:, 1]) / L[0] + 0.5, 1.0)
-    fy = np.mod(p[:, 1] / L[1] + 0.5, 1.0)
-    cx = np.clip((fx * ncx).astype(np.int64), 0, ncx - 1)
-    cy = np.clip((fy * ncy).astype(np.int64), 0, ncy - 1)
-    return np.bincount(cx * ncy + cy, minlength=ncx * ncy)
-
-
-def make_slab_counts(spec: BandSpec, n_slabs: int, counts) -> "np.ndarray":
-    """(D, (nxl+2)*ncy) per-slab EXTENDED column counts from the global
-    measured (ncx*ncy,) histogram: each halo-engine shard owns ncx/D
-    x-layers plus one periodic halo layer per side (parallel/halo.py), and
-    builds blocks for all of them — class capacities must cover every
-    slab's extended column set (feed this to make_band_classes on the
-    LOCAL-grid spec)."""
-    import numpy as np
-
-    ncx, ncy, _ = spec.bins.n_cells
-    c = np.asarray(counts, np.int64).reshape(ncx, ncy)
-    nxl = ncx // n_slabs
-    out = []
-    for d in range(n_slabs):
-        xs = np.arange(d * nxl - 1, (d + 1) * nxl + 1) % ncx
-        out.append(c[xs].reshape(-1))
-    return np.stack(out)
-
-
-def make_band_classes(
-    spec: BandSpec | None, n_particles: int, col_counts=None
-) -> BandSpec | None:
-    """Choose occupancy classes for the packed kernels (or leave spec as-is).
-
-    The column cap carries 4σ+8 Poisson slack, but tiles past
-    ceil(n_valid/rows) hold identically-zero A — streaming and evaluating
-    them is pure waste (~17% at bench scale).
-
-    ``col_counts``: measured per-column occupancy (numpy ints).  Real
-    workloads (the bench's vacancy-diluted lattice, any structured density)
-    have column-occupancy spreads far beyond Poisson (measured std 78 vs
-    Poisson 21.5 at bench scale — lattice-to-column aliasing), so when a
-    measurement is available the thresholds/capacities come from it
-    (brute-force over ≤4 classes).  Capacities count columns within HALF A
-    ROW TILE of a need boundary as already crossed: occupancy random-walks
-    ~±(R/2) per few-hundred Brownian steps, and the first measured-class
-    run overflowed in exactly 100 steps without this drift margin.  Without
-    a measurement, a Poisson model sizes conservative 3-class capacities.
-    Either way, per-step assignment overflow is sticky (OVF_CLASS) and the
-    regrow path re-measures or drops to a single class.
-
-    ``col_counts`` may be 2-D (K, C): K independent column SETS that must
-    ALL fit the chosen capacities (the halo engine's per-shard slabs —
-    capacities are static and shard-uniform under SPMD, so each class is
-    sized for the worst slab).
-    """
-    import numpy as np
-
-    if spec is None or spec.classes is not None:
-        return spec
-    ncx, ncy, _ = spec.bins.n_cells
-    C = ncx * ncy
-    R = spec.rows
-    t_cap = spec.bins.cap // R
-    mu = n_particles / C
-    if C < 32 or t_cap < 6 or mu < 64:
-        return spec
-
-    sigma = math.sqrt(mu)
-
-    def pois_le(t):                    # P(ceil(nv/R) <= t) = P(nv <= t*R)
-        return 0.5 * (1.0 + math.erf(
-            (t * R + 0.5 - mu) / (sigma * math.sqrt(2.0))
-        ))
-
-    if col_counts is not None:
-        counts = np.asarray(col_counts, np.int64)
-        if counts.ndim == 1:
-            counts = counts[None]
-        needs = -(-np.maximum(counts, 1) // R)
-        soft = np.minimum(-(-(np.maximum(counts, 1) + R // 2) // R), t_cap)
-        if needs.shape[-1] != C or needs.max() > t_cap:
-            return spec
-
-        def cap_gt(t):
-            # Capacity above t: measured histogram with an R/2 crossing
-            # margin plus a 2.5·sqrt(m)+8 excursion margin.  Column headroom
-            # is cheap (one tile per column moved up); these margins hold
-            # ~O(100) steps of drift.  A STRUCTURED initial density (the
-            # bench lattice) MELTS much faster than independent-particle
-            # exchange (measured count-drift rms 26 after 25 steps) — no
-            # static capacity covers both the initial and the relaxed
-            # histogram without losing most of the packing, so overflow is
-            # handled by RE-MEASURING from current positions (Simulation.run
-            # and bench.py both do) rather than by union-sizing here.
-            m = int((soft > t).sum(axis=-1).max())
-            return min(C, int(math.ceil(m + 2.5 * math.sqrt(max(m, 1.0)) + 8.0)))
-
-        cand_ts = sorted({int(t) for t in needs.ravel() if t < t_cap})
-        best = None
-        from itertools import combinations
-
-        for k in (1, 2, 3):            # number of sub-cap classes
-            for ts in combinations(cand_ts, k):
-                # Σ capacities above threshold ts[j] = cap_gt(ts[j]); the
-                # capacity of the class AT ts[j] is the difference of
-                # adjacent cums (cap_gt is nonincreasing in t, so all >= 0).
-                cums = [cap_gt(t) for t in ts]
-                c_low = C - cums[0]
-                if c_low <= 0:
-                    continue
-                classes = [(ts[0], c_low)]
-                for j in range(1, k):
-                    classes.append((ts[j], cums[j - 1] - cums[j]))
-                classes.append((t_cap, cums[k - 1]))
-                classes = [(t, c) for (t, c) in classes if c > 0]
-                if len(classes) < 2:
-                    continue
-                # ~0.5% per extra launch: per-class pallas_call overhead
-                cost = sum(t * c for t, c in classes)
-                cost += 0.005 * C * t_cap * (len(classes) - 1)
-                if best is None or cost < best[0]:
-                    best = (cost, tuple(classes))
-        if best is None or best[0] > 0.94 * C * t_cap:
-            return spec
-        return spec._replace(classes=best[1])
-
-    def cap_frac(p_gt):                # capacity ABOVE a class: 5σ + 2% slack
-        return p_gt + 5.0 * math.sqrt(max(p_gt * (1.0 - p_gt), 1e-9) / C) + 0.02
-
-    t1 = max(1, int(math.ceil((mu + 0.5 * sigma) / R)))
-    t2 = t1 + 1
-    if t2 >= t_cap:
-        return spec
-    c3 = min(C, int(math.ceil(C * cap_frac(1.0 - pois_le(t2)))))
-    c23 = min(C, int(math.ceil(C * cap_frac(1.0 - pois_le(t1)))))
-    c2 = max(c23 - c3, 0)
-    c1 = C - c3 - c2
-    if c1 <= 0:
-        return spec
-    avg = (c1 * t1 + c2 * t2 + c3 * t_cap) / C
-    if avg > 0.94 * t_cap:             # <6% stream saving: not worth 3 launches
-        return spec
-    classes = tuple(
-        (t, c) for (t, c) in ((t1, c1), (t2, c2), (t_cap, c3)) if c > 0
-    )
-    if len(classes) < 2:
-        return spec
-    return spec._replace(classes=classes)
-
-
-def class_segments(spec: BandSpec):
-    """Packed-order segments [(tiles_k, ncols_k, col_offset_k), ...],
-    need-DESCENDING (the packed permutation sorts columns by descending
-    tile need, so the largest class owns packed columns [0, c_K))."""
-    segs = []
-    off = 0
-    for (tk, ck) in reversed(spec.classes):
-        segs.append((tk, ck, off))
-        off += ck
-    return segs
-
-
-def class_assignment(spec: BandSpec, n_valid: jax.Array):
-    """(perm, inv, overflow): the packed→actual column order for the
-    occupancy-class kernels.
-
-    Columns sort by descending tile need with ascending-id tie-break
-    (lax.sort is stable → deterministic, bitwise-reproducible packing);
-    packed segment k (class_segments order) must satisfy need <= tiles_k,
-    checked on each segment's FIRST (largest) member.  ``inv`` restores
-    actual column order on the concatenated per-class kernel outputs.
-    """
-    C = n_valid.shape[0]
-    R = spec.rows
-    need = (jnp.maximum(n_valid, 1) + (R - 1)) // R          # (C,) i32 >= 1
-    ids = jnp.arange(C, dtype=jnp.int32)
-    neg_sorted, perm = jax.lax.sort((-need, ids), num_keys=1)
-    need_desc = -neg_sorted
-    overflow = jnp.asarray(False)
-    for (tk, ck, off) in class_segments(spec):
-        overflow = overflow | (need_desc[off] > tk)
-    inv = jnp.zeros((C,), jnp.int32).at[perm].set(ids)
-    return perm, inv, overflow
 
 
 def compute_windows(
     bins: CellBins, spec: BandSpec, box: Box, rcut: float, col_mask=None,
-    offsets: tuple | None = None,
 ):
     """Per-(offset, column, tile) band window starts in CYCLIC rank
     coordinates.
@@ -385,19 +166,11 @@ def compute_windows(
     on the cyclic axis [0, n_valid(c') + ...): index k < n_valid is rank k,
     index n_valid + k is rank k again one period up (z + Lz).  Pad slots
     (which sort last) do not exist on this axis, so a z-band that wraps the
-    periodic seam stays contiguous.  The kernels reconstruct slot indices
-    with the per-column valid count (see matvec/build kernels).
+    periodic seam stays contiguous.
 
-    Returns (j0 (O, C, T) int32, n_valid (C,) int32, band_overflow bool,
-    zsh (O, C, T) f32): overflow is set when a tile's band exceeds the
-    effective window min(W, n_valid) — the regrow path widens W.
-
-    zsh is the scalar z-image shift of the whole (offset, column, tile)
-    window, in {-Lz, 0, +Lz}: dz = z_i - z_cyc(j) + zsh is EXACT for every
-    in-range pair (no per-pair minimum-image round needed), where z_cyc is
-    the cyclic-prefolded neighbor z (tail entries carry +Lz, see
-    _cyclic_prefold).  +Lz when the band was wrap-shifted up (zb < lo_z);
-    an extra -Lz when j0 aliased past one full period (j0 >= n_valid).
+    Returns (j0 (O, C, T) int32, n_valid (C,) int32, band_overflow bool):
+    overflow is set when a tile's band exceeds the effective window
+    min(W, n_valid) — the regrow path widens W.
     """
     S = spec.bins.cap
     R = spec.rows
@@ -422,17 +195,9 @@ def compute_windows(
         # windows are consumed; halo rows may see wrong rolled data
         valid_tile = valid_tile & col_mask[:, None]
 
-    # The Pallas path stores/reads only the first N_HALF offsets' windows
-    # (mirrors apply as in-kernel transposes), so it passes
-    # offsets=spec.offsets[:N_HALF]: half the window compute, and a mirror
-    # window wider than W — which loses no pairs — cannot flag overflow.
-    # The pure-XLA reference matvec materializes all O windows.
-    if offsets is None:
-        offsets = spec.offsets
     j0s = []
-    zshs = []
     overflow = jnp.asarray(False)
-    for (ox, oy) in offsets:
+    for (ox, oy) in spec.offsets:
         zn = roll_cells(z, spec.bins, (ox, oy, 0))         # neighbor column z
         nv = roll_cells(n_valid[:, None], spec.bins, (ox, oy, 0))[:, 0]
 
@@ -448,147 +213,58 @@ def compute_windows(
         band = jnp.minimum(j1 - j0, nv[:, None])
         overflow = overflow | jnp.any(valid_tile & (band > W))
         # A window starting past one full period aliases cyclically.
-        aliased = j0 >= nv[:, None]
-        j0 = jnp.where(aliased, j0 - nv[:, None], j0)
+        j0 = jnp.where(j0 >= nv[:, None], j0 - nv[:, None], j0)
         j0s.append(jnp.clip(j0, 0, S))
-        zshs.append(shift - jnp.where(aliased, Lz, 0.0))
-    return (jnp.stack(j0s, axis=0), n_valid, overflow,
-            jnp.stack(zshs, axis=0).astype(jnp.float32))
+    return jnp.stack(j0s, axis=0), n_valid, overflow
+
+
+def neighbor_columns(spec: BandSpec) -> np.ndarray:
+    """(O, C) int32: the flat id of column c + offsets[o] (periodic)."""
+    ncx, ncy, _ = spec.bins.n_cells
+    cols = np.arange(ncx * ncy).reshape(ncx, ncy)
+    return np.stack([
+        np.roll(cols, (-ox, -oy), axis=(0, 1)).reshape(-1)
+        for (ox, oy) in spec.offsets
+    ]).astype(np.int32)
 
 
 def extend_slots(arr: jax.Array, spec: BandSpec) -> jax.Array:
     """(..., C, S) -> (..., C, S + W + 128): append wrap copies of slots
-    [0, W + 128).  Used by the pure-XLA reference matvec; the Pallas
-    kernels instead fold the wrap in-kernel (one cyclic prefold per
-    column, see _cyclic_prefold) and take plain zero-padded inputs."""
+    [0, W + 128), so the reference matvec reads every cyclic window as one
+    contiguous slice of the extended slot axis."""
     pad = spec.window + 128
     reps = -(-pad // arr.shape[-1])
     tail = jnp.concatenate([arr] * reps, axis=-1)[..., :pad] if reps > 1 else arr[..., :pad]
     return jnp.concatenate([arr, tail], axis=-1)
 
 
-def _pack_jz(j0: jax.Array, zsh: jax.Array, Lz: float) -> jax.Array:
-    """(N_HALF, C·T) i32 SMEM table packing the window start and z-shift:
-    j0 << 2 | (round(zsh / Lz) + 1).
-
-    j0 < cap needs ~13 bits and zsh is EXACTLY one of {-Lz, 0, +Lz}, so
-    both fit one scalar — at ξ ≥ 0.8 bench scales the separate (5, C·T)
-    i32 + f32 tables overflowed the kernels' 1 MB SMEM (measured: 1.13 MB
-    at C=651, T=28).  j0 is deliberately NOT lane-quantized: the kernels
-    read 128-aligned wide stripes and roll, so any j0 works, and an
-    8-quantized start wastes up to 7 window lanes of band margin."""
-    code = jnp.round(zsh / Lz).astype(jnp.int32) + 1
-    return (j0[:N_HALF] << 2 | code[:N_HALF]).reshape(N_HALF, -1)
-
-
-def _unpack_j0(jz):
-    return jz >> 2
-
-
-def _unpack_zsh(jz, Lz: float):
-    return ((jz & 3) - 1).astype(jnp.float32) * Lz
-
-
-def _read_width(spec: BandSpec) -> int:
-    """Width of the kernels' 128-aligned window reads: covers any j0's
-    (W)-wide band from the preceding 128-boundary, rounded up to a full
-    128-lane tile so pltpu.roll sees a 128-multiple lane dim."""
-    return -(-(spec.window + 128) // 128) * 128
-
-
-def _sext_of(spec: BandSpec) -> int:
-    """Lane extent of the kernels' cyclic-window arrays: room for a
-    128-aligned _read_width read starting at any aligned-down j0 <= cap."""
-    return (spec.bins.cap // 128) * 128 + _read_width(spec)
-
-
-def _cyclic_prefold(col, nv, sext, shifts=None):
-    """(K, SEXT) slot array -> cyclic-rank array, once per (column, offset).
-
-    Position k < nv keeps slot k; positions [nv, 2nv) get the seam wrap
-    (slot k - nv) with ONE select + roll.  Beyond 2nv the values are junk,
-    but the kernels' window contract only reads lanes whose A entries are
-    non-zero, and A lanes >= nv are masked at build time — so a single
-    wrap level is always sufficient (windows are j0 < nv plus < nv valid
-    lanes).  This replaces the old two-read-two-roll seam stitch that ran
-    PER TILE (_stacked_window_read) with per-column work.
-
-    ``shifts``: optional (sx, sy, Lz) traced scalars for POSITION columns
-    (K=4 rows x/y/z/mask): adds the neighbor column's periodic xy image
-    shift to rows 0/1 and +Lz to the z row's wrap region — after which
-    dx/dy/dz against these values need no per-pair minimum-image round
-    (the build kernel adds the per-tile zsh scalar, see compute_windows).
-    """
-    iota = jax.lax.broadcasted_iota(jnp.int32, (1, sext), 1)
-    folded = jnp.where(iota < nv, col, pltpu.roll(col, nv, 1))
-    if shifts is None:
-        return folded
-    sx, sy, lz = shifts
-    row = jax.lax.broadcasted_iota(jnp.int32, (col.shape[0], 1), 0)
-    adj = jnp.where(
-        row == 0, sx, jnp.where(
-            row == 1, sy,
-            jnp.where((row == 2) & (iota >= nv), lz, 0.0),
-        )
-    )
-    return folded + adj
-
-
-def _neighbor_column(c, ox, oy, ncx, ncy):
-    cx = jax.lax.div(c, ncy)
-    cy = jax.lax.rem(c, ncy)
-    nx = jax.lax.rem(cx + ox + ncx, ncx)
-    ny = jax.lax.rem(cy + oy + ncy, ncy)
-    return nx * ncy + ny
+def _min_image(dx, dy, dz, tilt, L):
+    """Minimum image in the xy-tilted box (box.min_image_components), with
+    round-half-up so the Triton kernel (which has no round primitive) and
+    the reference evaluate the same expression."""
+    img_z = jnp.floor(dz / L[2] + 0.5)
+    dz = dz - L[2] * img_z
+    img_y = jnp.floor(dy / L[1] + 0.5)
+    dy = dy - L[1] * img_y
+    dx = dx - tilt * L[1] * img_y
+    img_x = jnp.floor(dx / L[0] + 0.5)
+    dx = dx - L[0] * img_x
+    return dx, dy, dz
 
 
 def _pair_components(
-    xi, yi, zi, mi,            # (R, 1) tile coordinates / mask
-    xj, yj, zj, mj,            # (1, W) window coordinates
+    xi, yi, zi, mi,            # (..., R, 1) tile coordinates / mask
+    xj, yj, zj, mj,            # (..., 1, W) window coordinates
     tilt,                      # scalar
     *,
-    L, cheb: ChebPair, cut2: float, dr2: float, same_slot, zshift=None,
-    geometric: bool = False,
+    L, cheb: ChebPair, cut2: float, dr2: float, same_slot,
 ):
-    """The symmetric RPY-Ewald pair tensor for one (tile, window).
-
-    Pure VPU math shared by the build kernel; same formulas as
-    blocked_nearfield.build_pair_blocks (Mobility.cu:661-677 semantics with
-    Chebyshev pair functions instead of the texture table).
-
-    ``zshift``: when given, the xy image shifts are already folded into
-    (xj, yj) (see _cyclic_prefold) and the window's uniform z image shift
-    is this scalar — dx/dy/dz are exact without any per-pair round (any
-    pair whose unrounded distance exceeds the true minimum image is
-    provably outside rcut, so the cutoff mask handles it).
-
-    ``geometric``: return only (imrr, bco/d²) — the storage-reduced form.
-    The full block is imrr·I + bco·êêᵀ = imrr·I + (bco/d²)·ddᵀ, and the
-    matvec kernel reconstructs d = (dx, dy, dz) in f32 from the same
-    prefolded coordinates, so this cuts the stored bytes 3x (6 -> 2
-    components) with no change to the physics.
-    """
-    dx = xi - xj
-    dy = yi - yj
-    dz = zi - zj
-    if zshift is not None:
-        dz = dz + zshift
-    else:
-        # minimum image, xy-tilted box (box.min_image_components)
-        img_z = jnp.round(dz / L[2])
-        dz = dz - L[2] * img_z
-        img_y = jnp.round(dy / L[1])
-        dy = dy - L[1] * img_y
-        dx = dx - tilt * L[1] * img_y
-        img_x = jnp.round(dx / L[0])
-        dx = dx - L[0] * img_x
-
+    """The symmetric RPY-Ewald 3x3 pair tensor's 6 components for one
+    (tile, window): blocked_nearfield.build_pair_blocks' formulas
+    (Mobility.cu:661-677 semantics with Chebyshev pair functions instead
+    of the texture table)."""
+    dx, dy, dz = _min_image(xi - xj, yi - yj, zi - zj, tilt, L)
     d2 = dx * dx + dy * dy + dz * dz
-    if same_slot.dtype != jnp.bool_:
-        # Mosaic cannot concatenate i1 mask vectors whose lane widths are
-        # not vreg multiples (W=64 windows) — kernels pass the self-pair
-        # mask as f32 0/1 instead (see _build_kernel).
-        same_slot = same_slot > 0.5
     valid = (mi * mj > 0.0) & (d2 < cut2) & (d2 >= dr2) & ~same_slot
 
     d2_safe = jnp.where(valid, d2, 1.0)
@@ -596,8 +272,6 @@ def _pair_components(
     uf1, uf2 = eval_pair_functions(cheb, dist)
     imrr = jnp.where(valid, uf1, 0.0)
     bco = jnp.where(valid, uf2 - uf1, 0.0)
-    if geometric:
-        return imrr, bco / d2_safe
     inv_d = 1.0 / dist
     ex = dx * inv_d
     ey = dy * inv_d
@@ -630,13 +304,11 @@ def matvec_banded_reference(
     f_cells: jax.Array,        # (3, C, S) — padded slots zero
     self_mobility,
 ) -> jax.Array:
-    """Pure-XLA banded matvec: same cyclic-window math as the Pallas
-    kernels, windows materialized with gathers.
+    """Plain-XLA banded matvec: the same cyclic-window math as the Triton
+    kernel, windows materialized with gathers.
 
-    Gathers are fast on CPU, so this is the engine's off-TPU execution path
-    (interpret-mode Pallas costs minutes of compile per configuration) AND
-    the independent oracle the kernels are checked against in the suite.
-    Rebuilds pair functions per call — fine at test/CPU scale.
+    The CPU execution path (select_nf_impl) and the independent oracle the
+    kernel is checked against.  Rebuilds pair functions per call.
     """
     ncx, ncy, _ = spec.bins.n_cells
     C = ncx * ncy
@@ -651,15 +323,7 @@ def matvec_banded_reference(
     posm_ext = extend_slots(posm, spec)                    # (4, C, S_ext)
     f_ext = extend_slots(f_cells.astype(jnp.float32), spec)
 
-    import numpy as np
-
-    cols = np.arange(C).reshape(ncx, ncy)
-    nbr_cols = np.stack([
-        np.roll(cols, (-ox, -oy), axis=(0, 1)).reshape(-1)
-        for (ox, oy) in spec.offsets
-    ])                                                     # (O, C) int
-    nbr_cols = jnp.asarray(nbr_cols, jnp.int32)
-
+    nbr_cols = jnp.asarray(neighbor_columns(spec))         # (O, C)
     nv_nbr = n_valid[nbr_cols]                             # (O, C)
     own = posm.reshape(4, C, T, R)                         # (comp, C, T, R)
     islot = (
@@ -672,7 +336,7 @@ def matvec_banded_reference(
     # (O, C, T, R, W) intermediate set is ~10x the per-offset working set,
     # and even one offset's (C, T, R, W) set is ~200 GB at N=1M — chunking
     # the tile axis bounds peak memory to ~6 x C*Tc*R*W floats regardless
-    # of N (the off-TPU halo path at N=1M needs this to fit in host RAM).
+    # of N.
     budget = 2 ** 27                                       # ~128M f32 ~ 512MB
     Tc = max(1, min(T, budget // max(1, 6 * C * R * W)))
 
@@ -730,136 +394,25 @@ def matvec_banded_reference(
     return u + self_mobility * f_cells.astype(jnp.float32)
 
 
-def _build_kernel(
-    offs_ref, nv_ref, tilt_ref, jz_ref, posm_ref, own_ref, a_ref,
-    pos_ref, pcyc_ref, *,
-    spec: BandSpec, L, cheb, cut2, dr2,
+def _matvec_kernel(
+    nbr_ref, nv_ref, j0_ref, tilt_ref, px_ref, py_ref, pz_ref, pm_ref, f_ref,
+    u_ref, *, spec: BandSpec, cheb: ChebPair, L, cut2: float, dr2: float,
+    self_mobility: float, nrhs: int, lanes: int,
 ):
-    """Grid (column,): all N_HALF stored offsets of one column per step —
-    windows concatenate on the lane axis so the Chebyshev pair evaluation
-    runs once on (R, 5W) per tile (one write per component instead of
-    five) and the column's own rows / prefolds are shared by all offsets.
+    """One program = one (column c, row tile t).
 
-    Second output ``pos_ref`` (1, N_HALF, 3, SEXT): the prefolded neighbor
-    coordinates (periodic xy image + cyclic z wrap already applied) — the
-    matvec kernel streams these back instead of redoing the position
-    prefold on every one of the (m+1) matvecs per step.
+    Refs are flat: positions/mask (C·S,), forces/result (3·nrhs·C·S,)
+    component-major, the window table (O·C·T,), the neighbor-column table
+    (O·C,).  A tile with no particle (t·R >= n_valid[c]) runs no offset and
+    stores zeros (its forces are zero, so the self term is too).
+
+    Per offset, the window's W cyclic ranks are walked in ``lanes``-wide
+    chunks: rank k maps to slot k (k < n_valid of the neighbor column) or
+    slot k - n_valid one period up; lanes past n_valid are masked.  The
+    pair block acts as M·f = imrr·f + (bco/d²)·d·(d·f), so neither the unit
+    vectors nor the 3x3 tensor are formed.  The self pair (same slot at
+    offset 0) is excluded by slot equality, like the reference.
     """
-    ncx, ncy, _ = spec.bins.n_cells
-    S = spec.bins.cap
-    R = spec.rows
-    W = spec.window
-    T = S // R
-    SEXT = pcyc_ref.shape[-1]
-    dtype = jnp.dtype(spec.block_dtype)
-
-    c = pl.program_id(0)
-    tilt = tilt_ref[0]
-    cx = jax.lax.div(c, ncy)
-    cy = jax.lax.rem(c, ncy)
-    RW = _read_width(spec)
-
-    # Cyclic prefold of each neighbor column's (x, y, z, mask): one select
-    # + roll per (column, offset), with the periodic xy image as SCALAR
-    # shifts (the tilted box shifts x by tilt*Ly per y image) — the pair
-    # math needs no per-pair minimum-image rounds.
-    nvs = []
-    for h in range(N_HALF):
-        ox = offs_ref[h, 0]
-        oy = offs_ref[h, 1]
-        nbr = _neighbor_column(c, ox, oy, ncx, ncy)
-        nv = nv_ref[nbr]
-        nvs.append(nv)
-        wx = jnp.where(cx + ox >= ncx, 1.0,
-                       jnp.where(cx + ox < 0, -1.0, 0.0))
-        wy = jnp.where(cy + oy >= ncy, 1.0,
-                       jnp.where(cy + oy < 0, -1.0, 0.0))
-        sy = wy * L[1]
-        sx = wx * L[0] + tilt * sy
-        pcyc_ref[h] = _cyclic_prefold(
-            posm_ref[:, pl.ds(nbr, 1), :].reshape(4, SEXT), nv, SEXT,
-            shifts=(sx, sy, L[2]),
-        )
-        pos_ref[0, h] = pcyc_ref[h, 0:3, :]
-
-    iota_r = jax.lax.broadcasted_iota(jnp.int32, (R, 1), 0)
-    iota_w = jax.lax.broadcasted_iota(jnp.int32, (1, W), 1)
-    for t in range(T):
-        sl = slice(t * R, (t + 1) * R)
-        own8 = own_ref[0, :, t * 8:(t + 1) * 8]               # (R, 8)
-        xi = own8[:, 0:1]
-        yi = own8[:, 1:2]
-        zi = own8[:, 2:3]
-        mi = own8[:, 3:4]
-        islot = t * R + iota_r                                # (R, 1)
-
-        wins = []
-        sames = []
-        for h in range(N_HALF):
-            jz = jz_ref[h, c * T + t]
-            j0 = _unpack_j0(jz)
-            nv = nvs[h]
-            a0 = pl.multiple_of(j0 // 128 * 128, 128)
-            # + RW biases the dynamic shift positive: negative dynamic
-            # rolls silently wrap modulo the next power-of-two lane width
-            # on hardware (measured, tools/diag_roll.py) — wrong whenever
-            # RW is not a power of two (W >= 192 after regrow).
-            win = pltpu.roll(
-                pcyc_ref[h, :, pl.ds(a0, RW)], a0 - j0 + RW, 1
-            )[:, :W]                                          # (4, W)
-            use_main = (j0 + iota_w) < nv
-            lane_ok = iota_w < nv
-            jslot = jnp.where(use_main, j0 + iota_w, j0 + iota_w - nv)
-            # fold the per-tile z image shift and the lane mask into the
-            # window so one fused (R, 5W) evaluation serves all offsets
-            zw = win[2:3] - _unpack_zsh(jz, L[2])
-            mw = jnp.where(lane_ok, win[3:4], 0.0)
-            wins.append(jnp.concatenate([win[0:2], zw, mw], axis=0))
-            # f32 0/1, not bool: concatenating i1 mask vectors at W=64
-            # lane widths needs an invalid vreg bitcast in Mosaic
-            sames.append(
-                jnp.where((h == 0) & (jslot == islot), 1.0, 0.0)  # (R, W)
-            )
-        fq = jnp.concatenate(wins, axis=1)                    # (4, 5W)
-        same = jnp.concatenate(sames, axis=1)                 # (R, 5W)
-
-        imrr, bq = _pair_components(
-            xi, yi, zi, mi,
-            fq[0:1], fq[1:2], fq[2:3], fq[3:4], tilt,
-            L=L, cheb=cheb, cut2=cut2, dr2=dr2, same_slot=same,
-            zshift=0.0, geometric=True,
-        )
-        a_ref[0, 0, 0, sl, :] = imrr.astype(dtype)
-        a_ref[0, 0, 1, sl, :] = bq.astype(dtype)
-
-
-@partial(
-    jax.jit,
-    static_argnames=("spec", "cheb", "L", "ewald_cut", "ewald_dr", "interpret"),
-)
-def build_banded_blocks(
-    bins: CellBins,
-    tilt_xy,
-    spec: BandSpec,
-    cheb: ChebPair,
-    L: tuple,                  # static (Lx, Ly, Lz) from PSEParams
-    ewald_cut: float,
-    ewald_dr: float,
-    j0: jax.Array,             # (O, C, T) int32 from compute_windows
-    n_valid: jax.Array,        # (C,) int32 from compute_windows
-    zsh: jax.Array,            # (O, C, T) f32 from compute_windows
-    interpret: bool = False,
-):
-    """(A, pos_cyc): A (1, C, 2, S, 5W) banded pair coefficients —
-    (imrr, bco/d²) for the N_HALF stored offsets side by side on the lane
-    axis — plus pos_cyc (C, N_HALF, 3, SEXT), the prefolded neighbor
-    coordinates, both built once per step.  The matvec reconstructs the
-    dyadic ddᵀ part from pos_cyc (3x fewer stored bytes than the expanded
-    6-component tensor; the A stream is the step's dominant HBM traffic)."""
-    assert spec.classes is None, (
-        "build_banded_blocks is the single-class build; the occupancy-class "
-        "packed path goes through build_mv_banded(pack=...)"
-    )
     ncx, ncy, _ = spec.bins.n_cells
     C = ncx * ncy
     S = spec.bins.cap
@@ -867,759 +420,69 @@ def build_banded_blocks(
     W = spec.window
     T = S // R
     O = len(spec.offsets)
-
-    posm = jnp.stack([bins.px, bins.py, bins.pz, bins.mask], axis=0)
-    sext = _sext_of(spec)
-    posm_pad = jnp.pad(posm, ((0, 0), (0, 0), (0, sext - S)))
-    # Own rows in the dense (C, R, T·8) lane-group layout (make_own_pos):
-    # per-tile reads are static lane slices, and no 8-wide lane minor is
-    # ever stored (an (C, T, R, 8) operand tile-pads its minor to 128 —
-    # ~16x physical bytes).
-    own_io = make_own_pos(bins, spec)
-    offsets_arr = jnp.asarray([(o[0], o[1]) for o in spec.offsets], jnp.int32)
-    tilt = jnp.asarray(tilt_xy, jnp.float32).reshape(1)
-
-    # Only the N_HALF stored offsets are read in-kernel, and j0+zsh pack
-    # into ONE i32 table — the full (9, C*T) pair overflows the 1 MB SMEM
-    # budget at large-C/regrown configs (measured at xi>=0.8 bench scale).
-    jz_flat = _pack_jz(j0, zsh, float(L[2]))
-    kernel = partial(
-        _build_kernel,
-        spec=spec,
-        L=tuple(float(x) for x in L),
-        cheb=cheb,
-        cut2=float(ewald_cut) ** 2,
-        dr2=float(ewald_dr) ** 2,
-    )
-    return pl.pallas_call(
-        kernel,
-        grid=(C,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),        # offsets (O, 2)
-            pl.BlockSpec(memory_space=pltpu.SMEM),        # n_valid (C,)
-            pl.BlockSpec(memory_space=pltpu.SMEM),        # tilt (1,)
-            pl.BlockSpec(memory_space=pltpu.SMEM),        # jz table (whole)
-            pl.BlockSpec(memory_space=pltpu.VMEM),        # posm_pad (whole)
-            pl.BlockSpec((1, R, T * 8), lambda c: (c, 0, 0),
-                         memory_space=pltpu.VMEM),        # own rows
-        ],
-        # Only the half stencil is built (the mirrors are transposes —
-        # full_xy_offsets); the 5 stored offsets sit side by side on the
-        # lane axis so the matvec contracts all of them with ONE wide MXU
-        # dot per tile.  The prefolded positions ride along as a second
-        # output for the matvecs to stream back.
-        out_specs=(
-            pl.BlockSpec(
-                (1, 1, 2, S, N_HALF * W), lambda c: (0, c, 0, 0, 0),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(
-                (1, N_HALF, 3, sext), lambda c: (c, 0, 0, 0),
-                memory_space=pltpu.VMEM,
-            ),
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct(
-                (1, C, 2, S, N_HALF * W), jnp.dtype(spec.block_dtype)
-            ),
-            jax.ShapeDtypeStruct((C, N_HALF, 3, sext), jnp.float32),
-        ),
-        scratch_shapes=[pltpu.VMEM((N_HALF, 4, sext), jnp.float32)],
-        compiler_params=pltpu.CompilerParams(
-            # per-column independent outputs: steps may overlap freely
-            dimension_semantics=("parallel",),
-            vmem_limit_bytes=100 * 2 ** 20,
-        ),
-        interpret=interpret,
-    )(offsets_arr, n_valid, tilt, jz_flat, posm_pad, own_io)
-
-
-def _tile_apply(
-    t, c, ci, F1, Bq, fw, q, own3, ownl, folN,
-    jz_ref, u_ref, acct_ref, lhsf_ref, lhst_ref, own6_ref, ofr_ref,
-    *, spec: BandSpec, nrhs: int, parts: str, a_dtype,
-):
-    """Forward + transposed application of one tile's (F1, Bq) pair
-    coefficients against its window forces — the shared core of
-    _matvec_kernel and the fused build+matvec kernel (_build_mv_kernel).
-
-    Arguments are per-tile values: F1/Bq (R, 5W) in storage dtype, fw
-    (NR, 5W) window forces, q (3, 5W) recentred window coords (z image
-    shift folded), own3 (R, 3) / ownl (3, R) recentred own coords, folN
-    (NR, R) own forces (may carry cyclic-wrap junk at pad rows — the zero
-    A entries drop it).  See _matvec_kernel's docstring for the algebra.
-    """
-    R = spec.rows
-    W = spec.window
-    T = spec.bins.cap // R
-    NT = N_HALF - 1
-    W4 = NT * W
-    W5 = N_HALF * W
-    RW = _read_width(spec)
+    CS = C * S
     NR = 3 * nrhs
-    is_f32 = a_dtype == jnp.float32
-    precision = jax.lax.Precision.HIGHEST if is_f32 else None
-    sl = slice(t * R, (t + 1) * R)
-    ones_w = jnp.ones((1, W5), a_dtype)
-    ones_r = jnp.ones((1, R), a_dtype)
-    fw16 = fw.astype(a_dtype)
 
-    def split16(x):
-        """f32 -> (bf16 hi, bf16 lo); the f32 path keeps the exact value."""
-        if is_f32:
-            return (x,)
-        hi = x.astype(jnp.bfloat16)
-        return hi, (x - hi.astype(jnp.float32)).astype(jnp.bfloat16)
-
-    def fused_rows(ref, base, coords, ones_row):
-        """lhs rows [base; hi(coords); 1; (lo(coords); 1)] for a fused dot,
-        assembled through an f32 scratch — Mosaic rejects sublane concats
-        whose pieces land at non-8-multiple offsets, and bf16 VMEM packs
-        two logical rows per physical sublane, so partial-row bf16 stores
-        at odd offsets corrupt their pair row on real hardware (interpret
-        mode passed, the on-TPU gate caught 12%).  bf16 values round-trip
-        exactly through f32, so the hi/lo split survives the cast at read.
-
-        The SECOND ones row (bf16 path only) lets the transposed side's
-        [q_hi; 1; q_lo; 1] rhs carry a hi/lo-split −oof term in the same
-        contraction (see the moq dot below).
-        """
-        ps = split16(coords)
-        ref[0:NR] = base.astype(jnp.float32)
-        ref[NR:NR + 3] = ps[0].astype(jnp.float32)
-        ref[NR + 3:NR + 4] = ones_row.astype(jnp.float32)
-        if len(ps) > 1:
-            ref[NR + 4:NR + 7] = ps[1].astype(jnp.float32)
-            ref[NR + 7:NR + 8] = ones_row.astype(jnp.float32)
-            return ref[0:NR + 8].astype(a_dtype)
-        return ref[0:NR + 4].astype(a_dtype)
-
-    # of_r = own·f_r window via ONE MXU dot across all RHS (per-tile
-    # dot-launch overhead is the measured cost): hi/lo coordinate parts
-    # side by side on K against a doubled [fw_r; fw_r] rhs per lane
-    # segment, assembled through scratch (misaligned concats are rejected).
-    ps = split16(own3)
-    if is_f32:
-        ofs = [
-            jax.lax.dot_general(
-                ps[0], fw16[3 * r:3 * r + 3],
-                dimension_numbers=(((1,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32,
-                precision=precision,
-            )
-            for r in range(nrhs)
-        ]                                              # (R, 5W) each
-    else:
-        own6_ref[0:R, 0:3] = ps[0].astype(jnp.float32)
-        own6_ref[0:R, 3:6] = ps[1].astype(jnp.float32)
-        for r in range(nrhs):
-            seg = slice(r * W5, (r + 1) * W5)
-            ofr_ref[0:3, seg] = fw[3 * r:3 * r + 3]
-            ofr_ref[3:6, seg] = fw[3 * r:3 * r + 3]
-        of_all = jax.lax.dot_general(
-            own6_ref[0:R, 0:6].astype(a_dtype),
-            ofr_ref[0:6].astype(a_dtype),
-            dimension_numbers=(((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )                                              # (R, nrhs·5W)
-        ofs = [
-            of_all[:, r * W5:(r + 1) * W5] for r in range(nrhs)
-        ]
-    # G stays in storage dtype: (of - qf) is the contracted d·f —
-    # rounding it 0.4% RELATIVE is benign (unlike rounding raw
-    # coordinates), and it saves three full-width f32 passes.
-    Gs = []
-    for r in range(nrhs):
-        qf = jnp.sum(
-            q * fw[3 * r:3 * r + 3], axis=0, keepdims=True
-        )                                              # (1, 5W)
-        Gs.append(Bq * (ofs[r] - qf).astype(a_dtype))
-
-    if parts in ("both", "fwd"):
-        lhs = fused_rows(lhsf_ref, fw16, q, ones_w)
-        rhs = jnp.concatenate([F1] + Gs, axis=0)       # ((1+nr)R, 5W)
-        res = jax.lax.dot_general(
-            lhs, rhs,
-            dimension_numbers=(((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32,
-            precision=precision,
-        )                                              # (nl, (1+nr)R)
-        for r in range(nrhs):
-            seg = slice((1 + r) * R, (2 + r) * R)
-            qg = res[NR:NR + 3, seg]
-            if not is_f32:
-                qg = qg + res[NR + 4:NR + 7, seg]
-            gsum = res[NR + 3:NR + 4, seg]             # (1, R)
-            u_ref[ci, 0, 3 * r:3 * r + 3, sl] = (
-                res[3 * r:3 * r + 3, 0:R] + ownl * gsum - qg
-            )
-
-    if parts in ("both", "t"):
-        # transposed: uT_k(w) = Σ_r F1·f_own_k(r) + H·d_k for the
-        # 4 non-self offsets at once (lanes [W, 5W)), with
-        # H = (bco/d²)·(d·f_own).
-        F14 = F1[:, W:]
-        q4 = q[:, W:]                                  # (3, 4W)
-        # (qfo − oof)(r,w) = Σ_k fo_k(r)·q_k(w) − Σ_k fo_k·own_k:
-        # ONE transposed-lhs dot for all RHS (stacked on lanes)
-        # against the [q_hi; 1; q_lo; 1] rows the forward lhs
-        # already split — the per-row −oof rides the contraction
-        # as an extra component against the ones rows (hi/lo
-        # split: a bf16-rounded oof would alias ~0.4%·|own| onto
-        # the difference).  No row-major force tile is ever
-        # formed: transposing fol in-kernel measured ~1 ms/matvec
-        # (per-tile (R,R) identity dots AND one (S,S) per column
-        # both), and the old host-side own_f operand cost one
-        # ~0.1 ms XLA re-layout copy per matvec (ROADMAP 6).
-        nk = 4 if is_f32 else 8                     # [q;1(;q_lo;1)]
-        for r in range(nrhs):
-            lsl = slice(r * R, (r + 1) * R)
-            fol3 = folN[3 * r:3 * r + 3]               # (3, R)
-            oofT = jnp.sum(ownl * fol3, axis=0, keepdims=True)
-            ns = split16(-oofT)
-            ofr_ref[0:3, lsl] = fol3
-            ofr_ref[3:4, lsl] = ns[0].astype(jnp.float32)
-            if not is_f32:
-                ofr_ref[4:7, lsl] = fol3
-                ofr_ref[7:8, lsl] = ns[1].astype(jnp.float32)
-        moq = jax.lax.dot_general(
-            ofr_ref[0:nk, 0:nrhs * R].astype(a_dtype),
-            lhsf_ref[NR:NR + nk, W:].astype(a_dtype),
-            dimension_numbers=(((0,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-            precision=precision,
-        )                                              # (nr·R, 4W)
-        Hs = [
-            Bq[:, W:] * (-moq[r * R:(r + 1) * R]).astype(a_dtype)
-            for r in range(nrhs)
-        ]
-        lhs2 = fused_rows(lhst_ref, folN.astype(a_dtype), ownl,
-                          ones_r)
-        rhs2 = jnp.concatenate([F14] + Hs, axis=1)     # (R,(1+nr)4W)
-        res2 = jax.lax.dot_general(
-            lhs2, rhs2,
-            dimension_numbers=(((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-            precision=precision,
-        )                                              # (nl,(1+nr)4W)
-        uts = []
-        for r in range(nrhs):
-            seg = slice((1 + r) * W4, (2 + r) * W4)
-            oh = res2[NR:NR + 3, seg]
-            if not is_f32:
-                oh = oh + res2[NR + 4:NR + 7, seg]
-            hsum = res2[NR + 3:NR + 4, seg]
-            uts.append(
-                res2[3 * r:3 * r + 3, 0:W4] + oh - q4 * hsum
-            )
-        ut = (uts[0] if nrhs == 1
-              else jnp.concatenate(uts, axis=0))       # (NR, 4W)
-        for h in range(NT):
-            j0 = _unpack_j0(jz_ref[1 + h, c * T + t])
-            a = pl.multiple_of(j0 // 128 * 128, 128)
-            w = jnp.pad(
-                ut[:, h * W:(h + 1) * W], ((0, 0), (0, RW - W))
-            )
-            acct_ref[h, :, pl.ds(a, RW)] += pltpu.roll(
-                w, j0 - a, 1
-            )
-
-
-def _fold_acct(ci, nvs, acct_ref, u_ref, *, spec: BandSpec):
-    """Transposed fold: cyclic ranks -> slots (shared by both kernels).
-    Ranks < nv are slots; ranks in [nv, nv+W) wrap to slots [0, W).
-    Positions >= nv of the head hold wrap-rank data (re-added by the tail
-    fold), so they are masked out."""
-    S = spec.bins.cap
-    W = spec.window
-    RW = _read_width(spec)
-    iota_s = jax.lax.broadcasted_iota(jnp.int32, (1, S), 1)
-    for h in range(N_HALF - 1):
-        nv = nvs[1 + h]
-        a2 = pl.multiple_of(nv // 128 * 128, 128)
-        head = jnp.where(iota_s < nv, acct_ref[h, :, :S], 0.0)
-        tail_w = pltpu.roll(          # + RW: keep the dynamic shift
-            acct_ref[h, :, pl.ds(a2, RW)], a2 - nv + RW, 1   # positive
-        )[:, :W]
-        u_ref[ci, 1 + h] = head + jnp.pad(tail_w, ((0, 0), (0, S - W)))
-
-
-def _matvec_kernel(
-    offs_ref, nv_ref, jz_ref, perm_ref, a_ref, pcyc_ref, ownp_ref,
-    f_ref,
-    u_ref,
-    acct_ref, fcyc_ref, lhsf_ref, lhst_ref, own6_ref, ofr_ref, *,
-    spec: BandSpec, L, cps: int, nrhs: int = 1, parts: str = "both",
-    tcap: int | None = None,
-):
-    """Grid (column,): ONE streamed read of the N_HALF stored offsets per
-    column, applied BOTH ways (Mobility.cu:594-687 pair symmetry):
-
-      * forward: u[c] rows += (imrr·I + (bco/d²)·ddᵀ) · f(window of c+h),
-        written into the h=0 slot of the per-column output block;
-      * transposed (the 4 mirror offsets): u[c+h] windows += block ᵀ ·
-        f(rows of c), accumulated per target offset in cyclic-rank
-        coordinates in a VMEM scratch, wrap-folded once per column, and
-        written to slots h=1..4 of the same output at the OWN column — the
-        caller rolls those onto the target columns in XLA.
-
-    Storage-reduced A: only (imrr, bco/d²) are streamed; the dyadic ddᵀ
-    part of each pair block is reconstructed here from the prefolded
-    coordinates (the build kernel's exact scalar-shift geometry).  With
-    d_k(r,w) = own_k(r) - q_k(w) every dyadic sum separates,
-
-        of(r,w)   = Σ_k own_k·f_k(w)            (MXU, K=3)
-        G         = (bco/d²)·(of - qf)          (VPU, qf a (1,5W) row)
-        Σ_w G·d_k = own_k·Σ_w G - Σ_w G·q_k     (forward)
-        Σ_r H·d_k = Σ_r H·own_k - q_k·Σ_r H     (transposed)
-
-    so the per-pair d arrays are never materialized and each side needs
-    exactly ONE wide MXU dot: the isotropic F1 contraction, the coordinate
-    contractions, and the plain Σ ride together as extra lhs rows
-    ([f; q_hi; 1; q_lo] against [F1; G]) — per-tile dot-launch overhead
-    was the measured cost, not MXU throughput.  Coordinates are recentred
-    on the tile's first own row (valid slots are a column prefix, so it is
-    a real particle whenever the tile has any pair) and enter bf16 dots as
-    hi+lo pairs: ~16 mantissa bits where a single bf16 pass would alias
-    ~0.4% of |coordinate| onto d as large relative error.
-
-    ``cps`` columns are processed per grid step: the A stream has a fixed
-    per-grid-step issue cost, so fewer, larger transfers buy real time.
-
-    The position side (neighbor-window prefolds, own rows) is STATIC per
-    step: the build kernel emits the prefolded coordinates (pcyc_ref) and
-    the caller passes the own rows (ownp_ref) once per step, so the per-
-    matvec work here is the force prefold alone — the reason tilt and the
-    offset xy-image logic no longer appear in this kernel.
-
-    ``nrhs``: number of right-hand sides sharing ONE A stream (f_ref holds
-    3·nrhs rows).  The A read is the dominant cost, so u = M·[f₁ f₂] costs
-    far less than two matvecs — the step uses nrhs=2 to ride the
-    deterministic M·F on the first Lanczos matvec.  All dots widen on the
-    non-contracted axis; per-RHS results unpack from row/lane segments.
-
-    Junk lanes/rows (pad slots, beyond-band, cyclic wrap junk) all carry
-    finite junk coordinates but zero F1/Bq (mask and cutoff folded at
-    build), so every product drops them."""
-    ncx, ncy, _ = spec.bins.n_cells
-    S = spec.bins.cap
-    R = spec.rows
-    W = spec.window
-    T = S // R
-    NT = N_HALF - 1                       # transposed (mirror) offsets
-    SEXT = acct_ref.shape[-1]
-    W4 = NT * W
-    RW = _read_width(spec)                # 128-multiple window-read width
-
-    g = pl.program_id(0)
-    a_dtype = a_ref.dtype
-    iota_e = jax.lax.broadcasted_iota(jnp.int32, (1, SEXT), 1)
-    NR = 3 * nrhs
-    if tcap is None:
-        tcap = T
-
-    for ci in range(cps):
-        # Occupancy-class packing: the grid runs over PACKED columns (A and
-        # pos_cyc are stored class-packed, need-descending); perm maps back
-        # to the actual column id, which drives neighbor arithmetic, the
-        # window tables (full-T stride), and n_valid.  Single-class callers
-        # pass the identity.
-        c = perm_ref[g * cps + ci]
-        acct_ref[:] = jnp.zeros_like(acct_ref)
-        if tcap < T:
-            # Tiles >= tcap hold identically-zero A (pad rows) and are
-            # skipped — zero their share of the own-rows output plane.
-            u_ref[ci, 0] = jnp.zeros((NR, S), jnp.float32)
-
-        nvs = []
-        # One cyclic prefold per (column, offset) of the FORCE columns;
-        # coordinates need no per-matvec prefold — the build kernel's pcyc
-        # output carries them with the periodic xy image and +Lz wrap
-        # already applied, and a cheap VMEM copy re-stacks them under the
-        # force rows so the window reads below stay a SINGLE aligned
-        # (NR+3, RW) read + roll per (tile, offset) (split per-side rolls
-        # would double the per-tile roll count).
-        for h in range(N_HALF):
-            ox = offs_ref[h, 0]
-            oy = offs_ref[h, 1]
-            nbr = _neighbor_column(c, ox, oy, ncx, ncy)
-            nv = nv_ref[nbr]
-            nvs.append(nv)
-            col = f_ref[:, pl.ds(nbr, 1), :].reshape(NR, SEXT)
-            fcyc_ref[h, 0:NR] = jnp.where(
-                iota_e < nv, col, pltpu.roll(col, nv, 1)
-            )
-            fcyc_ref[h, NR:NR + 3] = pcyc_ref[ci, h]
-
-        for t in range(tcap):
-            sl = slice(t * R, (t + 1) * R)
-            a_tile = a_ref[0, ci, :, sl, :]                    # (2, R, 5W)
-            if parts == "none":
-                # pure-stream probe: touch A minimally so the fetch
-                # pipeline runs but (almost) no compute issues
-                u_ref[ci, 0, 0:1, t * R:(t + 1) * R] = (
-                    a_tile[0, 0:1, 0:R].astype(jnp.float32)
-                )
-                continue
-            F1 = a_tile[0]                                     # (R, 5W)
-            Bq = a_tile[1]                                     # bco/d²
-
-            # Windows: one wide read + roll per offset of the stacked
-            # (f, coords) cyclic array; the per-tile z image shift (zsh)
-            # folds into the window z so dz is exact.
-            wins = []
-            for h in range(N_HALF):
-                jzh = jz_ref[h, c * T + t]
-                j0h = _unpack_j0(jzh)
-                a0 = pl.multiple_of(j0h // 128 * 128, 128)
-                wide = fcyc_ref[h, :, pl.ds(a0, RW)]
-                # + RW: negative dynamic rolls wrap mod next-pow2 width on
-                # hardware (tools/diag_roll.py) — bias the shift positive
-                win = pltpu.roll(wide, a0 - j0h + RW, 1)[:, :W]  # (NR+3, W)
-                zq = win[NR + 2:NR + 3] - _unpack_zsh(jzh, L[2])
-                wins.append(
-                    jnp.concatenate([win[0:NR + 2], zq], axis=0)
-                )
-            fq = jnp.concatenate(wins, axis=1)                 # (NR+3, 5W)
-            fw = fq[0:NR]
-
-            # (R, 8) own tiles = STATIC lane slices of the (R, T·8)
-            # lane-group layout (t is a Python loop index)
-            ownp8 = ownp_ref[ci, :, t * 8:(t + 1) * 8]         # (R, 8)
-            cc_s = ownp8[0:1, 0:3]                             # (1, 3)
-            own3 = ownp8[:, 0:3] - cc_s                        # (R, 3)
-            ccl = fcyc_ref[0, NR:NR + 3, t * R:t * R + 1]      # (3, 1)
-            q = fq[NR:NR + 3] - ccl                            # (3, 5W)
-            ownl = fcyc_ref[0, NR:NR + 3, sl.start:sl.stop] - ccl
-            folN = fcyc_ref[0, 0:NR, sl.start:sl.stop]         # (NR, R)
-
-            _tile_apply(
-                t, c, ci, F1, Bq, fw, q, own3, ownl, folN,
-                jz_ref, u_ref, acct_ref, lhsf_ref, lhst_ref, own6_ref,
-                ofr_ref, spec=spec, nrhs=nrhs, parts=parts, a_dtype=a_dtype,
-            )
-
-        _fold_acct(ci, nvs, acct_ref, u_ref, spec=spec)
-
-
-def make_own_pos(bins: CellBins, spec: BandSpec) -> jax.Array:
-    """(C, R, T·8) own coordinates (+ mask as component 3) for
-    matvec_banded and the fused build+matvec kernel, computed ONCE per
-    step: lane group t·8+k holds component k of tile t's rows, so the
-    kernels' per-tile (R, 8) read is a STATIC lane slice.  (Reading a
-    column out of a lane-major array in-kernel needs a 128-wide read +
-    rotate per component, measured ~0.2 ms/matvec; and the earlier
-    (C, T, R, 8) layout's 8-wide lane minor was stored lane-padded to 128
-    — ~16× physical bytes on an operand streamed every matvec.)"""
-    S = spec.bins.cap
-    R = spec.rows
-    T = S // R
-    pos = jnp.stack([bins.px, bins.py, bins.pz, bins.mask], axis=0)
-    C = pos.shape[1]                                           # (4, C, S)
-    arr8 = jnp.concatenate(
-        [pos, jnp.zeros((4,) + pos.shape[1:], jnp.float32)], axis=0
-    )                                                          # (8, C, S)
-    return arr8.reshape(8, C, T, R).transpose(1, 3, 2, 0).reshape(C, R, T * 8)
-
-
-@partial(jax.jit, static_argnames=("spec", "self_mobility", "L", "interpret",
-                                   "parts", "cols_per_step"))
-def matvec_banded(
-    blocks,                    # (1, C, 2, S, 5W), or per-class tuple (packed)
-    pos_cyc,                   # (C, N_HALF, 3, SEXT), or per-class tuple
-    own_pos,                   # (C, R, T*8) from make_own_pos, or tuple
-    j0: jax.Array,             # (O, C, T) int32
-    n_valid: jax.Array,        # (C,) int32
-    zsh: jax.Array,            # (O, C, T) f32 from compute_windows
-    spec: BandSpec,
-    f_cells: jax.Array,        # (3·nrhs, C, S) f32 — padded slots MUST be zero
-    self_mobility,
-    L: tuple,                  # static (Lx, Ly, Lz)
-    interpret: bool = False,
-    parts: str = "both",       # "fwd"/"t"/"none": timing probes (WRONG result)
-    cols_per_step: int | None = None,
-    pack=None,                 # (perm, inv) from class_assignment, or None
-) -> jax.Array:
-    """u = M_real · f in column layout: one streamed read of the half band's
-    (imrr, bco/d²) coefficients, applied forward and transposed (the mirror
-    offsets) with the dyadic geometry rebuilt in-kernel from the build's
-    prefolded coordinates.
-
-    ``f_cells`` may stack nrhs ≤ 2 right-hand sides on its leading axis
-    (3·nrhs rows); they share one A stream (the dominant cost) and the
-    result stacks the same way."""
-    ncx, ncy, _ = spec.bins.n_cells
-    C = ncx * ncy
-    S = spec.bins.cap
-    R = spec.rows
-    W = spec.window
-    T = S // R
-    f_cells = f_cells.astype(jnp.float32)
-    nrhs = f_cells.shape[0] // 3
-    NR = 3 * nrhs
-    sext = _sext_of(spec)                     # cyclic-window lane extent
-    f_pad = jnp.pad(f_cells, ((0, 0), (0, 0), (0, sext - S)))
-    # No row-major own-force operand: the transposed side consumes the
-    # column-major force prefold directly via a transposed-lhs contraction
-    # (_tile_apply's moq dot) — the old (C, R, T·8) re-layout cost one
-    # ~0.1 ms XLA copy per matvec (~0.8 ms/step at m=6, the step's
-    # dominant copy traffic).
-    offsets_arr = jnp.asarray([(o[0], o[1]) for o in spec.offsets], jnp.int32)
-
-    a_dtype = jnp.dtype(spec.block_dtype)
-    jz_flat = _pack_jz(j0, zsh, float(L[2]))    # SMEM budget: one i32 table
-
-    def launch(blocks_k, pcyc_k, ownp_k, perm_k, tcap_k):
-        """One pallas_call over ``perm_k``'s columns at ``tcap_k`` tiles."""
-        ck = perm_k.shape[0]
-        sk = tcap_k * R
-        if cols_per_step is None:
-            # The A stream has a fixed per-grid-step issue cost: amortize
-            # over a few columns per step, but keep blocks small enough that
-            # the parallel grid's multi-buffering fits VMEM (cps=4 measured
-            # best; 6/8 were 10-15% slower and 24 blew the 100 MB limit).
-            budget = 8 * 2 ** 20
-            cps = next(
-                (d for d in (4, 3, 2) if ck % d == 0
-                 and d * 2 * sk * N_HALF * W * a_dtype.itemsize <= budget),
-                1,
-            )
-        else:
-            cps = cols_per_step
-        kernel = partial(_matvec_kernel, spec=spec,
-                         L=tuple(float(x) for x in L), cps=cps, nrhs=nrhs,
-                         parts=parts, tcap=tcap_k)
-        return pl.pallas_call(
-            kernel,
-            grid=(ck // cps,),
-            in_specs=[
-                pl.BlockSpec(memory_space=pltpu.SMEM),        # offsets (O, 2)
-                pl.BlockSpec(memory_space=pltpu.SMEM),        # n_valid (C,)
-                pl.BlockSpec(memory_space=pltpu.SMEM),        # jz table (whole)
-                pl.BlockSpec(memory_space=pltpu.SMEM),        # perm (ck,)
-                pl.BlockSpec((1, cps, 2, sk, N_HALF * W),
-                             lambda g: (0, g, 0, 0, 0),
-                             memory_space=pltpu.VMEM),        # A (streamed)
-                pl.BlockSpec((cps, N_HALF, 3, sext), lambda g: (g, 0, 0, 0),
-                             memory_space=pltpu.VMEM),        # prefolded coords
-                pl.BlockSpec((cps, R, T * 8), lambda g: (g, 0, 0),
-                             memory_space=pltpu.VMEM),        # own coords
-                pl.BlockSpec(memory_space=pltpu.VMEM),        # f_pad (whole)
-            ],
-            # Forward result (slot 0) and mirror contributions (slots 1..4)
-            # at the OWN column, one output DMA per grid step; the caller
-            # rolls the mirrors onto their target columns in XLA.  Column
-            # axis LEADING so the block's minor dims (3, S) equal the array
-            # dims — the Mosaic (8, 128) block-divisibility rule only
-            # exempts full dimensions.
-            out_specs=pl.BlockSpec((cps, N_HALF, NR, S),
-                                   lambda g: (g, 0, 0, 0),
-                                   memory_space=pltpu.VMEM),
-            out_shape=jax.ShapeDtypeStruct((ck, N_HALF, NR, S), jnp.float32),
-            scratch_shapes=[
-                pltpu.VMEM((N_HALF - 1, NR, sext), jnp.float32),
-                pltpu.VMEM((N_HALF, NR + 3, sext), jnp.float32),
-                pltpu.VMEM((16, N_HALF * W), jnp.float32),
-                pltpu.VMEM((16, R), jnp.float32),
-                pltpu.VMEM((nrhs * R, 8), jnp.float32),
-                pltpu.VMEM((8, nrhs * N_HALF * W), jnp.float32),
-            ],
-            compiler_params=pltpu.CompilerParams(
-                # Every output element is written by its own grid step (no
-                # cross-step accumulation since the forward result moved
-                # into the per-column block), so steps may overlap freely.
-                dimension_semantics=("parallel",),
-                # default scoped-vmem limit is 16 MB; the double-buffered
-                # multi-column A stream plus the VMEM-resident inputs need
-                # more
-                vmem_limit_bytes=100 * 2 ** 20,
-            ),
-            interpret=interpret,
-        )(offsets_arr, n_valid, jz_flat, perm_k, blocks_k, pcyc_k, ownp_k,
-          f_pad)
-
-    if spec.classes is None:
-        ident = jnp.arange(C, dtype=jnp.int32)
-        uo = launch(blocks, pos_cyc, own_pos, ident, T)
-    else:
-        perm, inv = pack
-        uos = []
-        for k, (tk, ck, off) in enumerate(class_segments(spec)):
-            uos.append(
-                launch(blocks[k], pos_cyc[k], own_pos[k],
-                       perm[off:off + ck], tk)
-            )
-        uo = jnp.concatenate(uos, axis=0)[inv]        # back to actual order
-
-    return _finish_u(uo, spec, f_cells, self_mobility)
-
-
-def _finish_u(uo, spec: BandSpec, f_cells, self_mobility):
-    """(C, N_HALF, NR, S) kernel output -> u (NR, C, S): fold the forward
-    block with the mirror contributions (rolled onto their targets in XLA)
-    and add the self term."""
-    u = jnp.moveaxis(uo[:, 0], 1, 0)                    # (NR, C, S) forward
-    # Mirror contributions: uo[c, 1+h] holds what column c's blocks
-    # contribute to column c+offsets[1+h] — roll each onto its target.
-    for h in range(N_HALF - 1):
-        ox, oy = spec.offsets[1 + h]
-        u = u + jnp.moveaxis(
-            roll_cells(uo[:, 1 + h], spec.bins, (-ox, -oy, 0)), 1, 0
-        )
-    return u + self_mobility * f_cells
-
-
-def _build_mv_kernel(
-    offs_ref, nv_ref, tilt_ref, jz_ref, perm_ref, posm_ref, ownp_ref, f_ref,
-    a_ref, pos_ref, u_ref,
-    mcyc_ref, acct_ref, lhsf_ref, lhst_ref, own6_ref, ofr_ref, *,
-    spec: BandSpec, L, cheb, cut2, dr2, cps: int, nrhs: int,
-    tcap: int | None = None,
-):
-    """Fused build + FIRST matvec, grid (C // cps,): per column, the pair
-    coefficients are evaluated (identically to _build_kernel), written to
-    the A output AND immediately applied to the force windows with the
-    _tile_apply core — the first of the step's (m+1) near-field matvecs
-    therefore never re-reads the A stream from HBM (~1 ms/step at bench
-    scale), and the position/force prefolds + the per-(tile, offset)
-    window roll are shared between the build evaluation and the matvec
-    (rows [x, y, z, mask, f·NR] of one cyclic array).
-
-    The matvec consumes the ROUNDED (storage-dtype) coefficients — the
-    exact values later matvecs stream back — so the Lanczos recurrence
-    sees one consistent operator across all iterations.
-
-    Outputs: A (as build_banded_blocks), pos_cyc (coords for the later
-    matvecs' windows), u (per-column forward + mirror blocks, folded by
-    _finish_u like matvec_banded's).
-    """
-    ncx, ncy, _ = spec.bins.n_cells
-    S = spec.bins.cap
-    R = spec.rows
-    W = spec.window
-    T = S // R
-    SEXT = mcyc_ref.shape[-1]
-    RW = _read_width(spec)
-    NR = 3 * nrhs
-    dtype = jnp.dtype(spec.block_dtype)
-
-    g = pl.program_id(0)
+    c = pl.program_id(0)
+    t = pl.program_id(1)
+    base = c * S + t * R
+    islot = t * R + jnp.arange(R, dtype=jnp.int32)             # (R,)
+    xi = px_ref[pl.ds(base, R)][:, None]
+    yi = py_ref[pl.ds(base, R)][:, None]
+    zi = pz_ref[pl.ds(base, R)][:, None]
+    mi = pm_ref[pl.ds(base, R)][:, None]
+    f_own = [f_ref[pl.ds(k * CS + base, R)] for k in range(NR)]
     tilt = tilt_ref[0]
-    iota_e = jax.lax.broadcasted_iota(jnp.int32, (1, SEXT), 1)
-    iota_r = jax.lax.broadcasted_iota(jnp.int32, (R, 1), 0)
-    iota_w = jax.lax.broadcasted_iota(jnp.int32, (1, W), 1)
-    if tcap is None:
-        tcap = T
+    active = t * R < nv_ref[c]
 
-    for ci in range(cps):
-        # Occupancy-class packing: see _matvec_kernel.  A/pos_cyc/u blocks
-        # are written in packed order; perm gives the actual column id.
-        c = perm_ref[g * cps + ci]
-        cx = jax.lax.div(c, ncy)
-        cy = jax.lax.rem(c, ncy)
-        acct_ref[:] = jnp.zeros_like(acct_ref)
-        if tcap < T:
-            u_ref[ci, 0] = jnp.zeros((NR, S), jnp.float32)
+    def offset_body(o, accs):
+        nbr = nbr_ref[o * C + c]
+        nvn = nv_ref[nbr]
+        j0 = j0_ref[(o * C + c) * T + t]
+        accs = list(accs)
+        for k0 in range(0, W, lanes):
+            w = k0 + jnp.arange(lanes, dtype=jnp.int32)        # (lanes,)
+            jw = j0 + w
+            jslot = jnp.where(jw < nvn, jw, jw - nvn)
+            jslot = jnp.minimum(jnp.maximum(jslot, 0), S - 1)
+            idx = nbr * S + jslot
+            xj = px_ref[idx][None, :]
+            yj = py_ref[idx][None, :]
+            zj = pz_ref[idx][None, :]
+            mj = jnp.where(w < nvn, pm_ref[idx], 0.0)[None, :]
+            dx, dy, dz = _min_image(xi - xj, yi - yj, zi - zj, tilt, L)
+            d2 = dx * dx + dy * dy + dz * dz
+            same = (o == 0) & (jslot[None, :] == islot[:, None])
+            valid = (mi * mj > 0.0) & (d2 < cut2) & (d2 >= dr2) & ~same
+            d2s = jnp.where(valid, d2, 1.0)
+            uf1, uf2 = eval_pair_functions(cheb, jnp.sqrt(d2s))
+            imrr = jnp.where(valid, uf1, 0.0)                  # (R, lanes)
+            g = jnp.where(valid, (uf2 - uf1) / d2s, 0.0)
+            for r in range(nrhs):
+                fx = f_ref[(3 * r) * CS + idx][None, :]
+                fy = f_ref[(3 * r + 1) * CS + idx][None, :]
+                fz = f_ref[(3 * r + 2) * CS + idx][None, :]
+                s = g * (dx * fx + dy * fy + dz * fz)
+                accs[3 * r] += jnp.sum(imrr * fx + s * dx, axis=1)
+                accs[3 * r + 1] += jnp.sum(imrr * fy + s * dy, axis=1)
+                accs[3 * r + 2] += jnp.sum(imrr * fz + s * dz, axis=1)
+        return tuple(accs)
 
-        # Cyclic prefolds, positions AND forces in one stacked array:
-        # rows [x, y, z, mask, f0..f(NR-1)] — one roll per (tile, offset)
-        # below serves both the pair evaluation and the matvec windows.
-        nvs = []
-        for h in range(N_HALF):
-            ox = offs_ref[h, 0]
-            oy = offs_ref[h, 1]
-            nbr = _neighbor_column(c, ox, oy, ncx, ncy)
-            nv = nv_ref[nbr]
-            nvs.append(nv)
-            wx = jnp.where(cx + ox >= ncx, 1.0,
-                           jnp.where(cx + ox < 0, -1.0, 0.0))
-            wy = jnp.where(cy + oy >= ncy, 1.0,
-                           jnp.where(cy + oy < 0, -1.0, 0.0))
-            sy = wy * L[1]
-            sx = wx * L[0] + tilt * sy
-            pm = _cyclic_prefold(
-                posm_ref[:, pl.ds(nbr, 1), :].reshape(4, SEXT), nv, SEXT,
-                shifts=(sx, sy, L[2]),
-            )
-            mcyc_ref[h, 0:4] = pm
-            pos_ref[ci, h] = pm[0:3, :]
-            col = f_ref[:, pl.ds(nbr, 1), :].reshape(NR, SEXT)
-            mcyc_ref[h, 4:4 + NR] = jnp.where(
-                iota_e < nv, col, pltpu.roll(col, nv, 1)
-            )
-
-        for t in range(tcap):
-            sl = slice(t * R, (t + 1) * R)
-            ownp8 = ownp_ref[ci, :, t * 8:(t + 1) * 8]        # (R, 8)
-            xi = ownp8[:, 0:1]
-            yi = ownp8[:, 1:2]
-            zi = ownp8[:, 2:3]
-            mi = ownp8[:, 3:4]
-            islot = t * R + iota_r                            # (R, 1)
-
-            wins_b = []
-            wins_f = []
-            sames = []
-            for h in range(N_HALF):
-                jzh = jz_ref[h, c * T + t]
-                j0 = _unpack_j0(jzh)
-                nv = nvs[h]
-                a0 = pl.multiple_of(j0 // 128 * 128, 128)
-                # + RW biases the dynamic shift positive (negative rolls
-                # wrap mod next-pow2 lane width on hardware)
-                win = pltpu.roll(
-                    mcyc_ref[h, :, pl.ds(a0, RW)], a0 - j0 + RW, 1
-                )[:, :W]                                      # (4+NR, W)
-                use_main = (j0 + iota_w) < nv
-                lane_ok = iota_w < nv
-                jslot = jnp.where(use_main, j0 + iota_w, j0 + iota_w - nv)
-                zw = win[2:3] - _unpack_zsh(jzh, L[2])
-                mw = jnp.where(lane_ok, win[3:4], 0.0)
-                wins_b.append(jnp.concatenate([win[0:2], zw, mw], axis=0))
-                wins_f.append(
-                    jnp.concatenate([win[4:4 + NR], win[0:2], zw], axis=0)
-                )
-                sames.append(
-                    jnp.where((h == 0) & (jslot == islot), 1.0, 0.0)
-                )
-            bq4 = jnp.concatenate(wins_b, axis=1)             # (4, 5W)
-            fq = jnp.concatenate(wins_f, axis=1)              # (NR+3, 5W)
-            same = jnp.concatenate(sames, axis=1)             # (R, 5W)
-
-            imrr, bq = _pair_components(
-                xi, yi, zi, mi,
-                bq4[0:1], bq4[1:2], bq4[2:3], bq4[3:4], tilt,
-                L=L, cheb=cheb, cut2=cut2, dr2=dr2, same_slot=same,
-                zshift=0.0, geometric=True,
-            )
-            F1 = imrr.astype(dtype)
-            Bq = bq.astype(dtype)
-            a_ref[0, ci, 0, sl, :] = F1
-            a_ref[0, ci, 1, sl, :] = Bq
-
-            fw = fq[0:NR]
-            cc_s = ownp8[0:1, 0:3]
-            own3 = ownp8[:, 0:3] - cc_s                       # (R, 3)
-            ccl = mcyc_ref[0, 0:3, t * R:t * R + 1]           # (3, 1)
-            q = fq[NR:NR + 3] - ccl                           # (3, 5W)
-            ownl = mcyc_ref[0, 0:3, sl.start:sl.stop] - ccl
-            folN = mcyc_ref[0, 4:4 + NR, sl.start:sl.stop]    # (NR, R)
-
-            _tile_apply(
-                t, c, ci, F1, Bq, fw, q, own3, ownl, folN,
-                jz_ref, u_ref, acct_ref, lhsf_ref, lhst_ref, own6_ref,
-                ofr_ref, spec=spec, nrhs=nrhs, parts="both", a_dtype=dtype,
-            )
-
-        _fold_acct(ci, nvs, acct_ref, u_ref, spec=spec)
+    zeros = tuple(jnp.zeros((R,), jnp.float32) for _ in range(NR))
+    accs = jax.lax.cond(
+        active, lambda: jax.lax.fori_loop(0, O, offset_body, zeros),
+        lambda: zeros,
+    )
+    for k in range(NR):
+        u_ref[pl.ds(k * CS + base, R)] = accs[k] + self_mobility * f_own[k]
 
 
 @partial(
     jax.jit,
     static_argnames=("spec", "cheb", "L", "ewald_cut", "ewald_dr",
-                     "self_mobility", "interpret", "cols_per_step"),
+                     "self_mobility", "interpret", "lanes", "num_warps"),
 )
-def build_mv_banded(
+def matvec_banded(
     bins: CellBins,
     tilt_xy,
     spec: BandSpec,
@@ -1629,125 +492,50 @@ def build_mv_banded(
     ewald_dr: float,
     j0: jax.Array,             # (O, C, T) int32 from compute_windows
     n_valid: jax.Array,        # (C,) int32
-    zsh: jax.Array,            # (O, C, T) f32 from compute_windows
-    own_pos,                   # (C, R, T*8) from make_own_pos, or tuple
-    f_cells: jax.Array,        # (3·nrhs, C, S) f32 — padded slots MUST be zero
+    f_cells: jax.Array,        # (3·nrhs, C, S) — padded slots MUST be zero
     self_mobility,
     interpret: bool = False,
-    cols_per_step: int | None = None,
-    pack=None,                 # (perm, inv) from class_assignment, or None
-):
-    """(A, pos_cyc, u): build the banded pair coefficients AND apply them
-    to ``f_cells`` in one fused kernel — build_banded_blocks +
-    matvec_banded with the first matvec's A re-read (the step's dominant
-    HBM stream) eliminated.  The integrator rides the step's first Lanczos
-    matvec (and the fused deterministic M·F, nrhs=2) on this call.
+    lanes: int = LANE_CHUNK,
+    num_warps: int = NUM_WARPS,
+) -> jax.Array:
+    """u = M_real · f in column layout (3·nrhs, C, S) through the Triton
+    kernel: the pair functions are evaluated in registers on every call
+    and shared by the nrhs <= 2 stacked right-hand sides.
 
-    With spec.classes, one kernel launch per occupancy class builds a
-    class-PACKED A / pos_cyc (returned as tuples, consumed by
-    matvec_banded with the same ``pack``)."""
+    ``interpret=True`` runs the kernel through the Pallas interpreter
+    (CPU tests); it is never the default.  ``lanes`` / ``num_warps`` are
+    the launch shape (tools/nearfield_ab.py --tune sweeps them)."""
     ncx, ncy, _ = spec.bins.n_cells
     C = ncx * ncy
     S = spec.bins.cap
     R = spec.rows
     W = spec.window
     T = S // R
-    f_cells = f_cells.astype(jnp.float32)
-    nrhs = f_cells.shape[0] // 3
-    NR = 3 * nrhs
-    sext = _sext_of(spec)
-    a_dtype = jnp.dtype(spec.block_dtype)
+    NR = f_cells.shape[0]
+    nrhs = NR // 3
+    assert NR in (3, 6), "matvec_banded takes 1 or 2 right-hand sides"
+    assert W % lanes == 0 and S % R == 0
 
-    posm = jnp.stack([bins.px, bins.py, bins.pz, bins.mask], axis=0)
-    posm_pad = jnp.pad(posm, ((0, 0), (0, 0), (0, sext - S)))
-    f_pad = jnp.pad(f_cells, ((0, 0), (0, 0), (0, sext - S)))
-    offsets_arr = jnp.asarray([(o[0], o[1]) for o in spec.offsets], jnp.int32)
-    tilt = jnp.asarray(tilt_xy, jnp.float32).reshape(1)
-    jz_flat = _pack_jz(j0, zsh, float(L[2]))
-
-    def launch(ownp_k, perm_k, tcap_k):
-        ck = perm_k.shape[0]
-        sk = tcap_k * R
-        if cols_per_step is None:
-            # Same budget logic as matvec_banded — here the A block is a
-            # double-buffered OUTPUT instead of an input stream.
-            budget = 8 * 2 ** 20
-            cps = next(
-                (d for d in (4, 3, 2) if ck % d == 0
-                 and d * 2 * sk * N_HALF * W * a_dtype.itemsize <= budget),
-                1,
-            )
-        else:
-            cps = cols_per_step
-        kernel = partial(
-            _build_mv_kernel,
-            spec=spec,
-            L=tuple(float(x) for x in L),
-            cheb=cheb,
-            cut2=float(ewald_cut) ** 2,
-            dr2=float(ewald_dr) ** 2,
-            cps=cps,
-            nrhs=nrhs,
-            tcap=tcap_k,
-        )
-        return pl.pallas_call(
-            kernel,
-            grid=(ck // cps,),
-            in_specs=[
-                pl.BlockSpec(memory_space=pltpu.SMEM),        # offsets (O, 2)
-                pl.BlockSpec(memory_space=pltpu.SMEM),        # n_valid (C,)
-                pl.BlockSpec(memory_space=pltpu.SMEM),        # tilt (1,)
-                pl.BlockSpec(memory_space=pltpu.SMEM),        # jz table (whole)
-                pl.BlockSpec(memory_space=pltpu.SMEM),        # perm (ck,)
-                pl.BlockSpec(memory_space=pltpu.VMEM),        # posm_pad (whole)
-                pl.BlockSpec((cps, R, T * 8), lambda g: (g, 0, 0),
-                             memory_space=pltpu.VMEM),        # own coords+mask
-                pl.BlockSpec(memory_space=pltpu.VMEM),        # f_pad (whole)
-            ],
-            out_specs=(
-                pl.BlockSpec(
-                    (1, cps, 2, sk, N_HALF * W), lambda g: (0, g, 0, 0, 0),
-                    memory_space=pltpu.VMEM,
-                ),
-                pl.BlockSpec((cps, N_HALF, 3, sext), lambda g: (g, 0, 0, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((cps, N_HALF, NR, S), lambda g: (g, 0, 0, 0),
-                             memory_space=pltpu.VMEM),
-            ),
-            out_shape=(
-                jax.ShapeDtypeStruct((1, ck, 2, sk, N_HALF * W), a_dtype),
-                jax.ShapeDtypeStruct((ck, N_HALF, 3, sext), jnp.float32),
-                jax.ShapeDtypeStruct((ck, N_HALF, NR, S), jnp.float32),
-            ),
-            scratch_shapes=[
-                pltpu.VMEM((N_HALF, 4 + NR, sext), jnp.float32),   # mcyc
-                pltpu.VMEM((N_HALF - 1, NR, sext), jnp.float32),   # acct
-                pltpu.VMEM((16, N_HALF * W), jnp.float32),         # lhsf
-                pltpu.VMEM((16, R), jnp.float32),                  # lhst
-                pltpu.VMEM((nrhs * R, 8), jnp.float32),            # own6
-                pltpu.VMEM((8, nrhs * N_HALF * W), jnp.float32),   # ofr
-            ],
-            compiler_params=pltpu.CompilerParams(
-                dimension_semantics=("parallel",),
-                vmem_limit_bytes=100 * 2 ** 20,
-            ),
-            interpret=interpret,
-        )(offsets_arr, n_valid, tilt, jz_flat, perm_k, posm_pad, ownp_k,
-          f_pad)
-
-    if spec.classes is None:
-        ident = jnp.arange(C, dtype=jnp.int32)
-        blocks, pos_cyc, uo = launch(own_pos, ident, T)
-    else:
-        perm, inv = pack
-        blocks, pos_cyc, uos = [], [], []
-        for k, (tk, ck, off) in enumerate(class_segments(spec)):
-            b_k, p_k, u_k = launch(own_pos[k], perm[off:off + ck], tk)
-            blocks.append(b_k)
-            pos_cyc.append(p_k)
-            uos.append(u_k)
-        blocks = tuple(blocks)
-        pos_cyc = tuple(pos_cyc)
-        uo = jnp.concatenate(uos, axis=0)[inv]        # back to actual order
-
-    return blocks, pos_cyc, _finish_u(uo, spec, f_cells, self_mobility)
+    kernel = partial(
+        _matvec_kernel, spec=spec, cheb=cheb, L=tuple(float(x) for x in L),
+        cut2=float(ewald_cut) ** 2, dr2=float(ewald_dr) ** 2,
+        self_mobility=float(self_mobility), nrhs=nrhs, lanes=lanes,
+    )
+    u = pl.pallas_call(
+        kernel,
+        grid=(C, T),
+        out_shape=jax.ShapeDtypeStruct((NR * C * S,), jnp.float32),
+        backend="triton",
+        compiler_params=plt.CompilerParams(num_warps=num_warps, num_stages=1),
+        interpret=interpret,
+        name="pse_banded_matvec",
+    )(
+        jnp.asarray(neighbor_columns(spec).reshape(-1)),
+        n_valid.astype(jnp.int32),
+        j0.astype(jnp.int32).reshape(-1),
+        jnp.asarray(tilt_xy, jnp.float32).reshape(1),
+        bins.px.reshape(-1), bins.py.reshape(-1), bins.pz.reshape(-1),
+        bins.mask.reshape(-1),
+        f_cells.astype(jnp.float32).reshape(-1),
+    )
+    return u.reshape(NR, C, S)

@@ -1,8 +1,9 @@
 """Cell-blocked NUFFT spread/contract: gather/scatter-free Gaussian spreading.
 
-TPU re-design of gpu_stokes_Spread/Contract (Mobility.cu:114-477).  The CUDA
-version scatter-adds P³ Gaussian taps per particle with atomics; XLA scatter
-serializes on TPU.  Here the FFT grid is partitioned into node blocks of
+Gather-free re-design of gpu_stokes_Spread/Contract (Mobility.cu:114-477).
+The CUDA version scatter-adds P³ Gaussian taps per particle with atomics
+(run to run, the summation order changes).  Here the FFT grid is
+partitioned into node blocks of
 (sx, sy, sz) nodes aligned with a particle cell grid of the same geometry,
 and spreading is formulated as a GATHER over a regular stencil:
 
@@ -32,6 +33,7 @@ import numpy as np
 from ..box import Box
 from ..cellbins import BinSpec, CellBins, full_offsets, roll_cells
 from ..params import PSEParams
+from .column_farfield import ff_matmul_precision, ff_weight_choice
 
 
 class FfSpec(NamedTuple):
@@ -41,9 +43,8 @@ class FfSpec(NamedTuple):
     s: tuple                # (sx, sy, sz) nodes per block per axis
     offsets: tuple          # full stencil (reach 1)
     store_weights: bool = True   # build W once per step, share spread/contract
-    full_precision: bool = False  # f32 MXU passes for the W contractions
-    weight_dtype: str = "float32"  # stored-W dtype (bf16 on TPU when the
-                                   # default-precision MXU rounds there anyway)
+    full_precision: bool = False  # HIGHEST-precision W contractions
+    weight_dtype: str = "float32"  # stored-W dtype (ff_weight_choice)
 
 
 def _axis_divisors(n_grid: int, p: int):
@@ -58,11 +59,11 @@ def make_ff_spec(
     n_particles: int,
     weight_dtype: str | None = None,
 ) -> FfSpec | None:
-    """Choose per-axis block sizes minimizing lane-tile padding of s³.
+    """Choose per-axis block sizes keeping s³ near a multiple of 128.
 
-    The weight blocks are stored/streamed as (C, cap, s³); the minor
-    dimension s³ is padded to a multiple of 128, so (sx·sy·sz) is chosen to
-    sit just above a multiple of 128 (e.g. 8·4·4=128 exactly, 5³=125→128).
+    The weight blocks are stored/streamed as (C, cap, s³); (sx·sy·sz) is
+    chosen to sit just at or above a multiple of 128 (e.g. 8·4·4=128
+    exactly, 5³=125→128), which keeps the GEMM tiles full.
     Returns None when the grid is too small to block (fallback: gather taps).
     """
     dims = (params.Nx, params.Ny, params.Nz)
@@ -90,30 +91,8 @@ def make_ff_spec(
     mu = n_particles / (nc[0] * nc[1] * nc[2])
     cap = max(8, int(math.ceil((mu + 5.0 * math.sqrt(mu) + 4.0) / 8.0)) * 8)
     cap = min(cap, max(8, int(math.ceil(n_particles / 8.0)) * 8))
-    # TPU default f32 contractions are bf16-grade (~1e-3 relative) — at or
-    # under the method's default error target.  A stricter requested error
-    # needs full-precision passes (~3x MXU time on the spread/contract).
-    # When the MXU rounds to bf16 anyway, store W in bf16 too: halves the
-    # dominant far-field HBM traffic at no additional precision loss.  On
-    # CPU (tests) matmuls are true f32, so W stays f32 there — the stored
-    # dtype matches the compute precision the backend actually uses.
-    full_precision = params.error < 1e-3
-    if weight_dtype is None:
-        # Resolved WITHOUT initializing the backend when jax_platforms is
-        # pinned (utils/backend.py); explicit weight_dtype keeps spec
-        # construction fully backend-free.
-        from ..utils.backend import probable_backend
-
-        weight_dtype = (
-            "bfloat16"
-            if (not full_precision and probable_backend() == "tpu")
-            else "float32"
-        )
-    elif full_precision and weight_dtype == "bfloat16":
-        raise ValueError(
-            "bfloat16 far-field weights are incompatible with "
-            f"error={params.error:g} < 1e-3 (full-precision passes)"
-        )
+    # dtype and precision follow the requested error alone
+    full_precision, weight_dtype = ff_weight_choice(params.error, weight_dtype)
     return FfSpec(
         bins=BinSpec(n_cells=nc, cap=cap), s=s, offsets=full_offsets(1),
         full_precision=full_precision, weight_dtype=weight_dtype,
@@ -257,7 +236,7 @@ def spread_blocked(
         ).astype(W.dtype)                                   # (C, 3, cap)
         acc = acc + jnp.einsum(
             "bpn,bcp->bcn", W, fr, preferred_element_type=jnp.float32,
-            precision=jax.lax.Precision.HIGHEST if spec.full_precision else None,
+            precision=ff_matmul_precision(spec.full_precision),
         ).astype(acc.dtype)
 
     acc = acc * jnp.asarray(params.spread_prefac, acc.dtype)
@@ -291,7 +270,7 @@ def contract_blocked(
         contrib = jnp.einsum(
             "bpn,bcn->bcp", W, v.astype(W.dtype),
             preferred_element_type=jnp.float32,
-            precision=jax.lax.Precision.HIGHEST if spec.full_precision else None,
+            precision=ff_matmul_precision(spec.full_precision),
         ).astype(u.dtype)
         u = u + roll_cells(contrib, spec.bins, (-o[0], -o[1], -o[2]))
 

@@ -1,22 +1,20 @@
 """Cell-blocked dense near-field: U = M_real · F without gathers.
 
-TPU re-design of the neighbor-list matvec (gpu_stokes_Mreal_kernel,
-Mobility.cu:594-687) driven by a measurement: XLA random gather/scatter on
-TPU serializes at ~0.11 G elem/s, 1000x below HBM streaming.  So instead of
-gathering neighbors, particles live in padded cell-major arrays (cellbins)
-and the mobility becomes dense (cap × cap) pair blocks between each cell and
-its 27-stencil neighbors:
+Gather-free re-design of the neighbor-list matvec (gpu_stokes_Mreal_kernel,
+Mobility.cu:594-687): instead of gathering neighbors, particles live in
+padded cell-major arrays (cellbins) and the mobility becomes dense
+(cap × cap) pair blocks between each cell and its 27-stencil neighbors:
 
     A[o, c] ∈ R^{cap×cap} per tensor component, c a cell, o a stencil offset.
 
 Per step the blocks are BUILT once (geometry + Chebyshev pair functions —
-pure VPU math, no table gathers), then every Lanczos matvec is a batched
-(cap×cap)·cap GEMV sweep — streaming reads that feed the MXU.  Only the
+elementwise math, no table gathers), then every Lanczos matvec is a
+batched (cap×cap)·cap GEMV sweep of streaming reads.  Only the
 half-stencil is stored: the −o block is the +o block's transpose, applied as
 a second (transposed) GEMV.
 
-The padded-pair overcompute is the price for regularity; capacities are
-chosen near 128 so the stored minor dimension matches the TPU lane tile.
+The padded-pair overcompute is the price for regularity.  The banded
+engine (ops/banded_nearfield.py) avoids it at large N.
 """
 
 from __future__ import annotations
@@ -168,8 +166,8 @@ def matvec_cells(
     uy = self_mobility * fy * bins.mask
     uz = self_mobility * fz * bins.mask
 
-    # f32 blocks promise f32 accuracy: force full-precision MXU passes (the
-    # TPU default computes f32 contractions at bf16 grade, ~1e-3 relative).
+    # f32 blocks promise f32 accuracy: force full-precision products (a GPU
+    # runs default-precision f32 contractions in TF32, ~1e-3 relative).
     # bf16 blocks already cap accuracy, so they keep the fast default.
     precision = (
         jax.lax.Precision.HIGHEST

@@ -1,11 +1,11 @@
 """Chebyshev evaluation of the real-space Ewald RPY pair functions.
 
 The reference (and our gather path) tabulates UF1/UF2 and interpolates via a
-texture/gather (Stokes.cc:309-422, Mobility.cu:661-670).  Random gathers
-serialize on TPU (~0.11 G elem/s measured), so the blocked engine instead
-evaluates piecewise Chebyshev fits — a pure FMA chain on the VPU with a
-two-way coefficient select at the r = 2a branch point (where the functions
-lose smoothness).
+texture/gather (Stokes.cc:309-422, Mobility.cu:661-670).  The blocked and
+banded engines instead evaluate piecewise Chebyshev fits — a pure FMA
+chain in registers with a two-way coefficient select at the r = 2a branch
+point (where the functions lose smoothness) — so the pair functions need no
+table loads inside a kernel.
 
 Fits are computed host-side in float64 from the exact formulas and certified
 against a dense sample; degree is chosen automatically for ~1e-6 absolute

@@ -1,17 +1,9 @@
 """Z-column NUFFT spread/contract: bilinear-form matmuls, no z windows.
 
-Third-generation TPU far field (production path).  Lessons from the two
-predecessors, both measured on v5e:
-
-  * stored-W einsum (ops/blocked_farfield.py): W = (27, C, cap, s³) GBs of
-    HBM traffic + N=3 GEMV contractions;
-  * separable extended-window (ops/sep_farfield.py, removed — git history):
-    right flop count, but
-    its 3-D overlap-add/gather intermediates have tiny (4..12) minor dims
-    that tile-pad 10-30×, and the measured contract was slower than the
-    stored-W path it replaced.
-
-This formulation keeps every array's minor dimension at ~Nz or wider.
+The production far field.  Its predecessor, the stored-W einsum
+(ops/blocked_farfield.py), moves W = (27, C, cap, s³) — GBs per step — and
+contracts it with N=3 GEMVs.  This formulation keeps every array's minor
+dimension at ~Nz or wider and turns both directions into batched GEMMs.
 Cells are full-height columns of (sx, sy, Nz) grid nodes.  For a particle
 p in column c and its 3×3 xy-neighborhood window G (9·sx·sy xy-nodes ×
 Nz z-nodes), the Gaussian quadrature is a bilinear form
@@ -19,10 +11,9 @@ Nz z-nodes), the Gaussian quadrature is a bilinear form
     u[p, comp] = wxy[p, :] · G[:, :, comp] · wz[p, :]ᵀ
 
 evaluated as two dense matmuls with the particle axis batched per column:
-H = wxy @ G (MXU, K = 9·sx·sy), then a z-masked reduce against wz (VPU).
-Contracting ALL Nz z-nodes instead of a ±rcut window trades ~5× MXU
-overcompute (free — the far field is bandwidth-bound) for the entire
-z-extension machinery; the z Gaussian decays below ``error`` inside the
+H = wxy @ G (K = 9·sx·sy), then a z contraction against wz.  Contracting
+ALL Nz z-nodes instead of a ±rcut window trades ~5× matmul overcompute
+(the far field is bandwidth-bound) for the entire z-extension machinery; the z Gaussian decays below ``error`` inside the
 column (same superset-support quadrature argument as blocked_farfield.py).
 Spread is the exact transpose: out = wxyᵀ @ (f ⊗ wz), overlap-added onto
 the grid along x and y only (3×3 rolls of arrays whose minor dim is Nz).
@@ -36,13 +27,10 @@ Cross-validated against the stored-W sweep in tests/test_farfield_paths.py.
 from __future__ import annotations
 
 import math
-from functools import partial
 from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from ..box import Box
 from ..cellbins import BinSpec, CellBins
@@ -59,12 +47,9 @@ class ColFfSpec(NamedTuple):
 
 
 class ColFactors(NamedTuple):
-    """Per-step Gaussian factors shared by spread and contract.
-
-    Both factors keep CAP as the minor dimension: cap is 8-rounded and
-    ~128-248 at production scale, so lane padding is ~0-3%, while the
-    node/z-minor orientation padded 144→256 / 96→128 lanes (the Pallas
-    contract kernel and the XLA einsums both stream these every step)."""
+    """Per-step Gaussian factors shared by spread and contract, both with
+    CAP as the minor dimension (the particle axis the einsums batch over
+    per column)."""
 
     wxy: jax.Array   # (C, 9·sx·sy, cap) joint xy window factor (tilt-aware)
     wz: jax.Array    # (C, Nz, cap) full-column z factor, mask folded
@@ -97,26 +82,52 @@ def make_col_spec(
     cap = int(math.ceil((mu + 5.0 * math.sqrt(mu) + 4.0) / 8.0)) * 8
     cap = min(cap, max(8, int(math.ceil(n_particles / 8.0)) * 8))
 
-    full_precision = params.error < 1e-3
-    if weight_dtype is None:
-        from ..utils.backend import probable_backend
-
-        weight_dtype = (
-            "bfloat16"
-            if (not full_precision and probable_backend() == "tpu")
-            else "float32"
-        )
-    elif full_precision and weight_dtype == "bfloat16":
-        raise ValueError(
-            "bfloat16 far-field factors are incompatible with "
-            f"error={params.error:g} < 1e-3 (full-precision passes)"
-        )
+    full_precision, weight_dtype = ff_weight_choice(params.error, weight_dtype)
     return ColFfSpec(
         bins=BinSpec(n_cells=(ncx, ncy, 1), cap=cap),
         s=(sx, sy),
         full_precision=full_precision,
         weight_dtype=weight_dtype,
     )
+
+
+# Far-field matmul dtype at error >= 1e-3 (see ff_weight_choice): f32
+# factors with TF32 products.  Measured on one H100 at the N=100k
+# phi=0.45 bench geometry (PERF.md): bf16 factors ran the brownian step
+# 1.7% faster (2 of 2 pairs, inside the run-to-run spread) at twice the
+# oracle error (1.84e-3 vs 8.86e-4, gate 5e-3); the far field is ~2% of
+# the step, so f32/TF32 keeps the accuracy.
+FAST_FF_WEIGHT_DTYPE = "float32"
+
+
+def ff_weight_choice(error: float, weight_dtype: str | None = None):
+    """(full_precision, weight_dtype) of the far-field factors, from the
+    requested ``error`` alone — never from the backend.
+
+    error < 1e-3: f32 factors, every contraction at Precision.HIGHEST (a
+    GPU would otherwise run f32 products in TF32, ~1e-3 relative).
+    error >= 1e-3: FAST_FF_WEIGHT_DTYPE at Precision.DEFAULT — "float32"
+    runs the products in TF32 on the GPU, "bfloat16" stores the factors in
+    bf16 with f32 accumulation.  Both sit at or under the method's error
+    target; an explicit ``weight_dtype`` overrides the choice."""
+    full_precision = error < 1e-3
+    if weight_dtype is None:
+        weight_dtype = "float32" if full_precision else FAST_FF_WEIGHT_DTYPE
+    elif full_precision and weight_dtype == "bfloat16":
+        raise ValueError(
+            "bfloat16 far-field factors are incompatible with "
+            f"error={error:g} < 1e-3 (full-precision passes)"
+        )
+    return full_precision, weight_dtype
+
+
+def ff_matmul_precision(full_precision: bool):
+    """Precision of the far-field contractions: HIGHEST where the error
+    target needs true f32 products, DEFAULT (TF32 for f32 operands on the
+    GPU, native for bf16) otherwise."""
+    if full_precision:
+        return jax.lax.Precision.HIGHEST
+    return jax.lax.Precision.DEFAULT
 
 
 def _node_fractions_xy(bins: CellBins, box: Box, params: PSEParams):
@@ -165,17 +176,15 @@ def build_col_factors(
     dz = L[2] * fdz
     # Node order within 9·sx·sy is OFFSET-MAJOR: (ox, oy, sx, sy).  The
     # spread fold (_windows_to_grid) then slices whole per-offset blocks
-    # off the 96 MB kernel output and overlap-adds BEFORE the minor-dim
-    # relayout — with offsets interleaved ((ox, sx, oy, sy)) the relayout
-    # ran on the full 9x window array (measured 0.46 ms reshape +
-    # 0.15 ms fold per with-forces step).
+    # off the einsum output and overlap-adds BEFORE the minor-dim relayout
+    # — with offsets interleaved ((ox, sx, oy, sy)) the relayout would run
+    # on the full 9x window array.
     dxo = (L[0] * fdx).reshape(C, 3, sx, spec.bins.cap)
     dyo = dyu.reshape(C, 3, sy, spec.bins.cap)
     dx = dxo[:, :, None, :, None, :] + box.tilt_xy * dyo[:, None, :, None]
-    # Factors are STORED in the matmul dtype (bf16 on TPU at error >= 1e-3):
-    # both consumers cast them at the einsum anyway, so storing f32 just
-    # doubled the build write + contract/spread read (wxy is 82 MB f32 at
-    # bench scale).  The cast is fused into the exp fusions.
+    # Factors are STORED in the matmul dtype: both consumers cast them at
+    # the einsum anyway, so a wider store would only add write + read
+    # traffic.  The cast is fused into the exp fusions.
     dtype, _ = _matmul_dtype(spec)
     wxy = jnp.exp(
         -expfac * (dx * dx + (dyo * dyo)[:, None, :, None])
@@ -189,9 +198,8 @@ def build_col_factors(
 
 
 def _matmul_dtype(spec: ColFfSpec):
-    if spec.full_precision:
-        return jnp.float32, jax.lax.Precision.HIGHEST
-    return jnp.dtype(spec.weight_dtype), None
+    dtype = jnp.float32 if spec.full_precision else jnp.dtype(spec.weight_dtype)
+    return dtype, ff_matmul_precision(spec.full_precision)
 
 
 def _grid_to_windows(grid: jax.Array, spec: ColFfSpec, params: PSEParams,
@@ -199,8 +207,8 @@ def _grid_to_windows(grid: jax.Array, spec: ColFfSpec, params: PSEParams,
     """(3, Nx, Ny, Nz) -> (C, 9·sx·sy, 3·Nz) xy-windows, minor dim Nz.
 
     ``dtype``: cast BEFORE the 9x window duplication so the materialized
-    window array (95 MB f32 at bench scale) is built in the matmul dtype —
-    casting after cost a separate 0.18 ms relayout copy per step."""
+    window array is built in the matmul dtype (casting after costs a
+    separate relayout copy)."""
     sx, sy = spec.s
     ncx, ncy, _ = spec.bins.n_cells
     if dtype is not None:
@@ -220,11 +228,10 @@ def _windows_to_grid(out: jax.Array, spec: ColFfSpec, params: PSEParams):
     """(C, 9·sx·sy, 3·Nz) -> (3, Nx, Ny, Nz) overlap-add on x and y.
 
     The node order is offset-major (build_col_factors), so each of the 9
-    offset contributions is a WHOLE sublane block of ``out`` — the fold
+    offset contributions is a whole contiguous block of ``out`` — the fold
     runs on layout-preserving slices of the 9x window array and only the
     9x-smaller folded result pays the minor-dim relayout (splitting the
-    3·Nz lane dim).  With the offsets interleaved this relayout ran on the
-    full window array: 0.46 ms/step at bench scale."""
+    3·Nz dim)."""
     sx, sy = spec.s
     ncx, ncy, _ = spec.bins.n_cells
     out = out.reshape(ncx, ncy, 9, sx * sy, 3 * params.Nz)
@@ -253,12 +260,10 @@ def spread_col(
     dtype, precision = _matmul_dtype(spec)
 
     # X is built directly in the matmul dtype (the cast fuses into the
-    # outer-product fusion — materializing f32 and casting at the einsum
-    # cost a second full-size pass over 95 MB at bench scale).
+    # outer-product fusion; materializing f32 and casting at the einsum
+    # would add a second full-size pass).
     # X[c, (k,z), p] = f[k,c,p]·wz[c,z,p] — cap-minor like the factors.
-    # prefac rides the small force operand (NOT the 95 MB einsum output);
-    # spread_col_pallas scales at the same point, keeping the two paths'
-    # rounding identical (the on-TPU gate pins them bitwise).
+    # prefac rides the small force operand, not the large einsum output.
     fp = f_cells * jnp.float32(params.spread_prefac)
     X = (
         fp.transpose(1, 0, 2)[:, :, None, :]
@@ -289,12 +294,12 @@ def contract_col(
         "cnp,cnm->cmp", factors.wxy.astype(dtype), v,
         preferred_element_type=jnp.float32, precision=precision,
     )                                                # (C, 3·Nz, cap)
-    # H is rounded to the matmul dtype before the z-contraction: its 164 MB
-    # f32 write+read dominated the contract's HBM traffic, and the rounding
-    # (~0.4% per element, averaged over the ~P significant z-terms) sits an
-    # order below the bf16 matmul-input rounding already accepted at
-    # error >= 1e-3 (pinned by test_farfield_paths).  Accumulation stays
-    # f32 via preferred_element_type; full_precision keeps everything f32.
+    # H is rounded to the matmul dtype before the z-contraction: its f32
+    # write+read dominates the contract's memory traffic, and at bf16 the
+    # rounding (~0.4% per element, averaged over the ~P significant
+    # z-terms) sits an order below the bf16 matmul-input rounding already
+    # accepted at error >= 1e-3 (pinned by test_farfield_paths).
+    # Accumulation stays f32 via preferred_element_type.
     H = H.reshape(C, 3, params.Nz, cap).astype(dtype)
     u = jnp.einsum(
         "ckzp,czp->kcp", H, factors.wz,
@@ -302,213 +307,3 @@ def contract_col(
     )                                                # (3, C, cap) directly
     scale = jnp.float32(params.quadW * params.spread_prefac)
     return scale * u
-
-
-def _contract_kernel(gext_ref, wxy_ref, wz_ref, u_ref, scr_ref, *,
-                     spec: ColFfSpec, nz: int, ncx: int, ncy: int, cb: int):
-    """Grid (C // cb,): per column, assemble the 3x3 xy window from the
-    compact node grid (9 static scratch copies — the XLA path materializes
-    the 9x-duplicated window array instead), then ONE MXU dot against the
-    node-major xy factor and a masked segment dot for the z contraction.
-    Everything stays 2-D with cap on lanes; H never touches HBM."""
-    sx, sy = spec.s
-    n_nodes = 9 * sx * sy
-    g = pl.program_id(0)
-    # Segment-sum lhs: row k is 1 over lanes [k·nz, (k+1)·nz) — contracts
-    # the z axis per component on the MXU (VPU lane reductions cost ~2x).
-    seg = jax.lax.broadcasted_iota(jnp.int32, (3, 3 * nz), 1) // nz
-    krow = jax.lax.broadcasted_iota(jnp.int32, (3, 3 * nz), 0)
-    ones_k = jnp.where(seg == krow, 1.0, 0.0).astype(jnp.float32)
-
-    for ci in range(cb):
-        c = g * cb + ci
-        bx = jax.lax.div(c, ncy)
-        by = jax.lax.rem(c, ncy)
-        for dx in range(3):
-            xb = jax.lax.rem(bx + (dx - 1) + ncx, ncx)
-            for dy in range(3):
-                yb = jax.lax.rem(by + (dy - 1) + ncy, ncy)
-                blk = gext_ref[pl.ds(xb * ncy + yb, 1)].reshape(
-                    sx * sy, 3 * nz
-                )
-                for ix in range(sx):
-                    # window node (dx, dy, ix, iy) -> wxy's OFFSET-major
-                    # flat order (build_col_factors); f32 scratch dodges the
-                    # bf16 odd-offset partial-row store hazard (sy may be
-                    # odd)
-                    r0 = ((dx * 3 + dy) * sx + ix) * sy
-                    scr_ref[r0:r0 + sy] = blk[
-                        ix * sy:(ix + 1) * sy
-                    ].astype(jnp.float32)
-        ht = jax.lax.dot_general(
-            scr_ref[:].astype(wxy_ref.dtype), wxy_ref[ci],
-            dimension_numbers=(((0,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )                                              # (3·nz, cap)
-        wzc = wz_ref[ci].astype(jnp.float32)           # (nz, cap)
-        e = ht * jnp.concatenate([wzc, wzc, wzc], axis=0)
-        u_ref[ci] = jax.lax.dot_general(
-            ones_k, e,
-            dimension_numbers=(((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )                                              # (3, cap)
-
-
-@partial(jax.jit, static_argnames=("spec", "params", "interpret"))
-def contract_col_pallas(
-    grid_real: jax.Array,        # (3, Nx, Ny, Nz)
-    spec: ColFfSpec,
-    params: PSEParams,
-    factors: ColFactors,
-    interpret: bool = False,
-) -> jax.Array:
-    """TPU production contract: same quadrature as contract_col with the
-    H intermediate kept in VMEM (its HBM write+read was ~40% of the XLA
-    contract's traffic) and the 9x window duplication replaced by
-    in-kernel scratch assembly from the COMPACT node grid (the XLA path's
-    window build cost ~0.45 ms/step at bench scale).  Rounding points
-    differ from the XLA path: the XLA contract rounds H to bf16 entering
-    the z dot, while this kernel keeps ht/e and the z contraction in f32 —
-    the kernel is the MORE accurate of the two, so the pallas-vs-XLA gate
-    tolerance (5e-3) bounds their combined bf16-weight rounding, not a
-    shared rounding point."""
-    sx, sy = spec.s
-    ncx, ncy, _ = spec.bins.n_cells
-    C = ncx * ncy
-    cap = spec.bins.cap
-    Nz = params.Nz
-    n_nodes = 9 * sx * sy
-    dtype, _ = _matmul_dtype(spec)
-
-    # Compact per-column node grid, window-node-major, (k, z) on lanes —
-    # ONE relayout of the 10.6 MB grid instead of the 9x-duplicated
-    # (C, 144, 3Nz) window array.
-    gc = grid_real.astype(dtype).reshape(3, ncx, sx, ncy, sy, Nz)
-    gext = gc.transpose(1, 3, 2, 4, 0, 5).reshape(C, sx * sy, 3 * Nz)
-
-    cb = next((d for d in (8, 6, 4, 3, 2) if C % d == 0), 1)
-    kernel = partial(_contract_kernel, spec=spec, nz=Nz, ncx=ncx, ncy=ncy,
-                     cb=cb)
-    u = pl.pallas_call(
-        kernel,
-        grid=(C // cb,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.VMEM),    # gext (whole, ~28 MB)
-            pl.BlockSpec((cb, n_nodes, cap), lambda g: (g, 0, 0),
-                         memory_space=pltpu.VMEM),    # wxy (node-major)
-            pl.BlockSpec((cb, Nz, cap), lambda g: (g, 0, 0),
-                         memory_space=pltpu.VMEM),    # wz
-        ],
-        out_specs=pl.BlockSpec((cb, 3, cap), lambda g: (g, 0, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((C, 3, cap), jnp.float32),
-        scratch_shapes=[pltpu.VMEM((n_nodes, 3 * Nz), jnp.float32)],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel",),
-            vmem_limit_bytes=100 * 2 ** 20,
-        ),
-        interpret=interpret,
-    )(gext, factors.wxy, factors.wz)
-
-    scale = jnp.float32(params.quadW * params.spread_prefac)
-    return scale * u.transpose(1, 0, 2)               # (3, C, cap)
-
-
-def _spread_kernel(f_ref, wxy_ref, wz_ref, out_ref, *, nz: int, cb: int):
-    """Grid (C // cb,): out_c = wxy_c · (f_c ⊗ wz_c)ᵀ with the force-moment
-    operand X built in VMEM (the XLA path materializes it to HBM)."""
-    for ci in range(cb):
-        # f32 product, rounded ONCE to the matmul dtype — the same
-        # rounding point as the XLA path's X materialization
-        wzc = wz_ref[ci].astype(jnp.float32)           # (nz, cap)
-        segs = [wzc * f_ref[ci, k:k + 1] for k in range(3)]
-        x = jnp.concatenate(segs, axis=0).astype(wxy_ref.dtype)
-        out_ref[ci] = jax.lax.dot_general(
-            wxy_ref[ci], x,
-            dimension_numbers=(((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )                                              # (n_nodes, 3·nz)
-
-
-@partial(jax.jit, static_argnames=("spec", "params", "interpret"))
-def spread_col_pallas(
-    f_cells: jax.Array,          # (3, C, cap) — padded slots zero
-    spec: ColFfSpec,
-    params: PSEParams,
-    factors: ColFactors,
-    interpret: bool = False,
-) -> jax.Array:
-    """TPU production spread: per-column window moments via one fused MXU
-    dot (X = f ⊗ wz never touches HBM), then the XLA overlap-add fold
-    (_windows_to_grid) unchanged.  Same quadrature and rounding points as
-    spread_col at bf16."""
-    sx, sy = spec.s
-    ncx, ncy, _ = spec.bins.n_cells
-    C = ncx * ncy
-    cap = spec.bins.cap
-    Nz = params.Nz
-    n_nodes = 9 * sx * sy
-
-    cb = next((d for d in (8, 6, 4, 3, 2) if C % d == 0), 1)
-    kernel = partial(_spread_kernel, nz=Nz, cb=cb)
-    out = pl.pallas_call(
-        kernel,
-        grid=(C // cb,),
-        in_specs=[
-            pl.BlockSpec((cb, 3, cap), lambda g: (g, 0, 0),
-                         memory_space=pltpu.VMEM),    # forces (slot layout)
-            pl.BlockSpec((cb, n_nodes, cap), lambda g: (g, 0, 0),
-                         memory_space=pltpu.VMEM),    # wxy (node-major)
-            pl.BlockSpec((cb, Nz, cap), lambda g: (g, 0, 0),
-                         memory_space=pltpu.VMEM),    # wz
-        ],
-        out_specs=pl.BlockSpec((cb, n_nodes, 3 * Nz), lambda g: (g, 0, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((C, n_nodes, 3 * Nz), jnp.float32),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel",),
-            vmem_limit_bytes=100 * 2 ** 20,
-        ),
-        interpret=interpret,
-    )(
-        # prefac rides the (3, C, cap) forces (~1/40th the elements):
-        # scaling the kernel OUTPUT cost a 0.40 ms full-pass multiply over
-        # the 96 MB window array per with-forces step
-        (f_cells * jnp.float32(params.spread_prefac))
-        .transpose(1, 0, 2).astype(jnp.float32),
-        factors.wxy,
-        factors.wz,
-    )
-
-    return _windows_to_grid(out, spec, params)
-
-
-def spread_col_auto(
-    bins: CellBins,
-    f_cells: jax.Array,
-    box: Box,
-    spec: ColFfSpec,
-    params: PSEParams,
-    factors: ColFactors,
-) -> jax.Array:
-    """Dispatch: fused Pallas spread on TPU at bf16, XLA path otherwise."""
-    if (jax.default_backend() == "tpu" and not spec.full_precision
-            and jnp.dtype(spec.weight_dtype) == jnp.bfloat16):
-        return spread_col_pallas(f_cells, spec, params, factors)
-    return spread_col(bins, f_cells, box, spec, params, factors)
-
-
-def contract_col_auto(
-    bins: CellBins,
-    grid_real: jax.Array,
-    box: Box,
-    spec: ColFfSpec,
-    params: PSEParams,
-    factors: ColFactors,
-) -> jax.Array:
-    """Dispatch: fused Pallas contract on TPU at bf16 (production), the
-    XLA einsum path otherwise (full_precision f32, CPU, fallbacks)."""
-    if (jax.default_backend() == "tpu" and not spec.full_precision
-            and jnp.dtype(spec.weight_dtype) == jnp.bfloat16):
-        return contract_col_pallas(grid_real, spec, params, factors)
-    return contract_col(bins, grid_real, box, spec, params, factors)

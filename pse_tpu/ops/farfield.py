@@ -1,6 +1,6 @@
 """Wave-space (far-field) spectral-Ewald mobility on the FFT grid.
 
-TPU-native re-design of the NUFFT pipeline of Mobility.cu:114-575:
+Vectorized re-design of the NUFFT pipeline of Mobility.cu:114-575:
 
   spread (Gaussian scatter-add)  →  FFT×3  →  Green/transverse scale
   [→ + Hermitian noise]          →  IFFT×3 →  contract (Gaussian gather)
@@ -37,8 +37,8 @@ class SpreadTaps(NamedTuple):
     """Per-particle Gaussian tap indices and weights, shared by spread and
     contract (same Gaussian both ways).
 
-    Layout: (P³, N) with the particle dimension minor — TPU tiles pad the
-    minor dimension to 128, so it must be the large one."""
+    Layout: (P³, N) with the particle dimension minor — the large,
+    contiguous one."""
 
     flat_idx: jax.Array   # (P^3, N) int32 — flattened grid node index
     weights: jax.Array    # (P^3, N) f32 — exp(-expfac * |Δr|²)
@@ -92,8 +92,8 @@ def spread(taps: SpreadTaps, forces: jax.Array, params: PSEParams) -> jax.Array:
     """Scatter forces onto the grid (gpu_stokes_Spread_kernel analogue).
 
     Returns a real (3, Nx, Ny, Nz) force-moment grid.  One scatter-add per
-    component: a combined (N·P³, 3) value array would be tile-padded
-    3 -> 128 on TPU.
+    component: no combined (N·P³, 3) value array with a 3-wide minor
+    dimension.
     """
     n_total = params.n_grid_total
     prefac = jnp.asarray(params.spread_prefac, forces.dtype)

@@ -89,10 +89,9 @@ def sqrt_mreal(
     (3, N) for the gather engine, (3, C, cap) cell slots for the banded and
     blocked engines — and ``psi_t`` is a vector in that same layout; the
     whole Krylov iteration (basis storage included) runs in that layout, so
-    no flat↔tiled reshape copies happen around the matvec custom calls (the
-    retiling of a (3, C, cap) operand from a flat (3N,) vector cost one
-    ~0.1 ms XLA copy per iteration at bench scale).  Returns u in the same
-    native layout.
+    no flat↔tiled reshape copies happen around the matvec custom calls
+    (each would cost one full-vector copy per iteration).  Returns u in the
+    same native layout.
 
     ``w0``: optional precomputed M·v₀ (native layout), v₀ = ψ/‖ψ‖ — the
     step passes this to ride the deterministic M·F on the first Lanczos
@@ -134,8 +133,8 @@ def sqrt_mreal(
         # are overridden by the `j < warm + 1` floor anyway), and the final
         # result vector is assembled ONCE after the loops from the stored
         # (alpha, beta).  Within an assembling iteration the math is
-        # unconditional — a lax.cond here materialized its captured
-        # operands (measured ~0.34 ms/iteration of pure overhead).
+        # unconditional — a lax.cond here would materialize its captured
+        # operands (the whole Krylov basis) every iteration.
         if assemble:
             f = _sqrt_tridiag_e1(alpha, beta, state.V.shape[0])
             psi_m_psi = alpha[0]
@@ -204,14 +203,13 @@ def sqrt_mreal(
     # The result coefficients come from the LAST assembling iteration's f:
     # that iteration computed _sqrt_tridiag_e1 over the same stored
     # (alpha, beta) arrays the final state carries, so recomputing it here
-    # would duplicate the eigh — and each eigh costs ~0.15 ms of small-op
-    # launch latency on TPU regardless of m_max (measured; the 24×24 math
-    # is free, the ~100-op storm is not).  The only path on which final.f
+    # would duplicate the eigh — a storm of ~100 small ops whose launch
+    # latency dwarfs the 24×24 math.  The only path on which final.f
     # is stale is a breakdown BEFORE the first assembling iteration (the
     # main loop then runs zero iterations and the warm-phase f is still
     # 0); the cond's captured operands are (m_max,) vectors, so the
     # materialization cost that rules lax.cond out inside the iteration
-    # (~0.7 ms with the big basis captured) does not apply here.
+    # (the big basis captured) does not apply here.
     # Breakdown truncation stays exact either way: zero-padded trailing
     # blocks decouple, Brownian.cu:507-510 semantics.
     f_final = jax.lax.cond(

@@ -1,6 +1,6 @@
 """Real-space (near-field) Ewald RPY mobility: U = M_real · F.
 
-TPU-native re-design of gpu_stokes_Mreal_kernel (Mobility.cu:594-687): the
+Vectorized re-design of gpu_stokes_Mreal_kernel (Mobility.cu:594-687): the
 CUDA thread-per-particle neighbor loop with texture-table lookups becomes a
 fully vectorized gather over a fixed-capacity neighbor array.
 
@@ -8,11 +8,10 @@ Because the Lanczos square root applies M_real to many vectors at fixed
 positions (Brownian.cu:473-521), the position-dependent pair coefficients
 (table-interpolated UF1/UF2 and pair unit vectors) are precomputed once per
 step (``precompute_pair_coeffs``) so each matvec is just one force gather +
-fused multiply-adds — the TPU analogue of the reference's texture cache.
+fused multiply-adds — the analogue of the reference's texture cache.
 
 Layout: all large per-pair arrays are stored structure-of-arrays, (N, K) per
-component — a (N, K, 3) array would have its minor dimension tile-padded
-3 -> 128 on TPU (42x memory).  Velocity/force vectors cross this module as
+component — no (N, K, 3) arrays with a 3-wide minor dimension.  Velocity/force vectors cross this module as
 (N, 3) at the API boundary but are transposed to (3, N) internally.
 
 Invalid (padded / out-of-range) pairs are encoded as zero coefficients, so
@@ -75,8 +74,8 @@ def precompute_pair_coeffs(
     r_ind = jnp.clip(r_ind_f.astype(jnp.int32), 0, table.shape[0] - 1)
     fac = dist / ewald_dr - r_ind.astype(dist.dtype) - 1.0
 
-    # Per-column gathers ((N, K) each): a single (N, K, 4) gather would be
-    # tile-padded 4 -> 128 on TPU.
+    # Per-column gathers ((N, K) each) instead of one (N, K, 4) gather with
+    # a 4-wide minor dimension.
     table_t = table.T                             # (4, nR)
     t_uf1 = table_t[0][r_ind]
     t_uf2 = table_t[1][r_ind]

@@ -1,6 +1,6 @@
 """Stochastic increments: per-particle ψ and Hermitian wave-space grid noise.
 
-TPU-native replacement for the Saru counter-based RNG kernels
+Replacement for the Saru counter-based RNG kernels
 (Brownian.cu:99-345).  Randomness is keyed as fold_in(key(seed), timestep),
 preserving the reference's determinism contract: the draw at a given
 (seed, timestep) is independent of simulation history (Brownian.cu:117, 176).

@@ -4,18 +4,16 @@ GSPMD auto-sharding (parallel/sharding.py) runs the whole step but inserts
 all-gathers around the cell-layout rolls; this module shards the COLUMN GRID
 of the banded engine (ops/banded_nearfield.py) into contiguous x-slabs, one
 per device, and exchanges exactly one column layer per side per matvec with
-``jax.lax.ppermute`` over ICI — the TPU-native analog of an MPI halo
-exchange, and the piece that makes BASELINE config 5 (N=1M) fit: the banded
-blocks (the dominant buffer, ~14 GB at N=1M) are built and held shard-local,
-never materialized globally.
+``jax.lax.ppermute`` (NCCL over NVLink on GPUs) — the analog of an MPI
+halo exchange: every near-field matvec runs shard-local on its slab.
 
 Decomposition:
   * columns (C = ncx*ncy, x-major) split along x into D slabs;
-  * each device builds blocks/windows for its slab PLUS one halo layer per
+  * each device computes windows for its slab PLUS one halo layer per
     side (halo rows are throwaway duplicates — they cost 2/ncx_local extra
-    build work and keep every kernel call purely local);
-  * per matvec, only the slab-boundary force columns move over ICI
-    (2 * ncy * cap * 3 floats per device);
+    work and keep every kernel call purely local);
+  * per matvec, only the slab-boundary position and force columns move
+    between devices (2 * ncy * cap * (4 + 3·nrhs) floats per device);
   * far field (blocked NUFFT + FFT) and binning stay GSPMD-global;
   * Lanczos runs on the global sharded vectors — XLA turns its dot products
     into psums.
@@ -30,25 +28,18 @@ from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
-from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+from jax.sharding import Mesh, PartitionSpec as P
 
 from .. import integrator
 from ..box import Box
 from ..cellbins import CellBins, bin_columns, bin_particles
 from ..ops import banded_nearfield as bdn
-from ..ops import blocked_farfield as bff
 from .sharding import particle_sharding, replicated
 
 
 def _shard_map(fn, mesh, in_specs, out_specs):
-    try:
-        return jax.shard_map(fn, mesh=mesh, in_specs=in_specs,
-                             out_specs=out_specs, check_vma=False)
-    except (AttributeError, TypeError):
-        from jax.experimental.shard_map import shard_map
-
-        return shard_map(fn, mesh=mesh, in_specs=in_specs,
-                         out_specs=out_specs, check_rep=False)
+    return jax.shard_map(fn, mesh=mesh, in_specs=in_specs,
+                         out_specs=out_specs, check_vma=False)
 
 
 class _HaloCtx(NamedTuple):
@@ -56,16 +47,8 @@ class _HaloCtx(NamedTuple):
     ff_bins: object
     j0e: jax.Array         # (O, D*(nxl+2)*ncy, T) windows, slab-extended
     nve: jax.Array         # (D*(nxl+2)*ncy,) valid counts, slab-extended
-    zshe: jax.Array        # (O, D*(nxl+2)*ncy, T) z-image shifts, slab-ext
-    blocks_e: object       # (1, D*(nxl+2)*ncy, 2, S, 5W) slab-ext coeffs
-                           #  (per-class tuple when slab classes are set)
-    pcyc_e: object         # (D*(nxl+2)*ncy, 5, 3, SEXT) prefolded coords
-                           #  (per-class tuple when slab classes are set)
-    ownp_e: object         # (D*(nxl+2)*ncy, R, T*8) own coords (per-class
-                           #  tuple of permuted copies when classes are set)
     ff_weights: object
-    tilt: jax.Array        # () f32 (the reference matvec needs it)
-    cls: object = ()       # (perm, inv) per-shard class packing, or ()
+    tilt: jax.Array        # () f32
     nf_f: object = None    # (3, C, S) forces binned with the positions
     ff_f: object = None    # (3, C_ff, cap_ff) ditto on the far-field grid
 
@@ -78,8 +61,8 @@ def make_halo_engine(config: integrator.StepConfig, mesh: Mesh, axis="dp"):
     """
     if config.engine != "banded":
         raise ValueError("halo engine requires the banded near-field")
-    # The far field stays GSPMD-global (pure-XLA z-column path); only the
-    # near field runs shard_map'd Pallas with per-shard arrays.
+    # The far field stays GSPMD-global (plain-XLA z-column path); only the
+    # near field runs shard_map'd on per-shard arrays.
     bs = config.band_spec
     p = config.params
     ncx, ncy, _ = bs.bins.n_cells
@@ -91,25 +74,8 @@ def make_halo_engine(config: integrator.StepConfig, mesh: Mesh, axis="dp"):
         )
     nxl = ncx // D
     S = bs.bins.cap
-    interpret = integrator._pallas_interpret()
-    # Per-shard occupancy classes: make_config(shard_slabs=D) sizes
-    # ``slab_classes`` on the extended local grid over the WORST slab
-    # (capacities must be static and shard-uniform under SPMD); each shard
-    # packs its own columns per step with its own class_assignment perm.
-    # Off-TPU the matvec runs the pure-XLA reference — no packing there.
-    slab_cls = None if interpret else bs.slab_classes
-    if slab_cls is not None and sum(c for _, c in slab_cls) != (nxl + 2) * ncy:
-        # slab_classes were sized for a different slab count (make_config's
-        # shard_slabs != this mesh's D): capacities don't match the local
-        # grid — fall back to a single class rather than mis-pack
-        slab_cls = None
-    spec_loc = bs._replace(
-        bins=bs.bins._replace(n_cells=(nxl + 2, ncy, 1)),
-        classes=slab_cls,
-        slab_classes=None,
-    )
-    has_cls = spec_loc.classes is not None
-    segs = bdn.class_segments(spec_loc) if has_cls else None
+    spec_loc = bs._replace(bins=bs.bins._replace(n_cells=(nxl + 2, ncy, 1)))
+    nf_matvec = integrator.banded_matvec(config, bdn.select_nf_impl())
     C_loc = (nxl + 2) * ncy
     perm_fwd = [(i, (i + 1) % D) for i in range(D)]
     perm_bwd = [(i, (i - 1) % D) for i in range(D)]
@@ -119,8 +85,7 @@ def make_halo_engine(config: integrator.StepConfig, mesh: Mesh, axis="dp"):
 
         ``seam_shift``: for x-COORDINATE arrays — the devices at the
         periodic seam add ∓Lx to the received halo layer so local slab
-        coordinates are physically contiguous (the build kernel's
-        scalar-shift minimum image sees no x wrap inside a slab)."""
+        coordinates are physically contiguous."""
         a = arr.reshape(arr.shape[:-2] + (nxl, ncy, S))
         left = jax.lax.ppermute(a[..., -1:, :, :], axis, perm_fwd)
         right = jax.lax.ppermute(a[..., :1, :, :], axis, perm_bwd)
@@ -132,132 +97,47 @@ def make_halo_engine(config: integrator.StepConfig, mesh: Mesh, axis="dp"):
         ext = jnp.concatenate([left, a, right], axis=-3)
         return ext.reshape(arr.shape[:-2] + (C_loc, S))
 
-    col_spec = P(None, axis, None)
-
-    # ---- shard-local prepare: windows (+ blocks on TPU) on the ext slab ---
-    # Off-TPU the matvec runs the pure-XLA reference (see
-    # banded_nearfield.matvec_banded_reference), which rebuilds the pair
-    # functions from the exchanged slab positions — no stored blocks.
-    def _local_prepare(px, py, pz, mask, tilt):
-        bins_loc = CellBins(
+    def local_bins(px, py, pz, mask):
+        return CellBins(
             px=exchange_x(px, seam_shift=True), py=exchange_x(py),
             pz=exchange_x(pz), mask=exchange_x(mask),
             pid=None, cell_of=None, rank_of=None, overflow=None,
         )
+
+    col_spec = P(None, axis, None)
+
+    # ---- shard-local prepare: windows on the extended slab ----------------
+    def _local_prepare(px, py, pz, mask, tilt):
+        bins_loc = local_bins(px, py, pz, mask)
         box = Box(jnp.asarray(p.L, jnp.float32), tilt)
-        # Interior columns are local x in [1, nxl]; halo rows get windows and
-        # blocks too (their rolls wrap wrongly at slab edges) but their
-        # outputs are discarded, so gate the overflow check on the interior.
+        # Interior columns are local x in [1, nxl]; halo rows get windows
+        # too (their rolls wrap wrongly at slab edges) but their outputs
+        # are discarded, so gate the overflow check on the interior.
         cx = jnp.arange(C_loc, dtype=jnp.int32) // ncy
         col_ok = (cx >= 1) & (cx <= nxl)
-        offs = (spec_loc.offsets if interpret
-                else spec_loc.offsets[:bdn.N_HALF])
-        j0, nv, ovf, zsh = bdn.compute_windows(
+        j0, nv, ovf = bdn.compute_windows(
             bins_loc, spec_loc, box, p.ewald_cut, col_mask=col_ok,
-            offsets=offs,
         )
-        covf = jnp.asarray(False)
-        pack = ()
-        if interpret:
-            own_pos = jnp.zeros((1,), jnp.float32)   # unused placeholder
-        else:
-            own_pos = bdn.make_own_pos(bins_loc, spec_loc)
-            if has_cls:
-                perm, inv, covf = bdn.class_assignment(spec_loc, nv)
-                pack = (perm, inv)
-                own_pos = tuple(
-                    jnp.take(own_pos, perm[off:off + ck], axis=0)
-                    for (tk, ck, off) in segs
-                )
-        # Blocks/pos_cyc are NOT built here: the engine's build_mv runs the
-        # fused build + first matvec (bdn.build_mv_banded) shard-local, so
-        # the step's first near-field matvec never re-reads the A stream —
-        # same one-A-pass structure as the single-chip step.
-        return (own_pos, pack, j0, nv, zsh,
-                jnp.stack([ovf, covf]).reshape(2))
+        return j0, nv, ovf.reshape(1)
 
-    blocks_spec = col_spec if not interpret else P(axis)
-    aux_spec = P(axis)
-    if has_cls:
-        own_spec = tuple(aux_spec for _ in segs)
-        blocks_spec = tuple(blocks_spec for _ in segs)
-        pcyc_spec = tuple(aux_spec for _ in segs)
-        pack_spec = (P(axis), P(axis))
-    else:
-        own_spec = aux_spec
-        pcyc_spec = aux_spec
-        pack_spec = ()
     local_prepare = _shard_map(
         _local_prepare, mesh,
         in_specs=(P(axis, None),) * 4 + (P(),),
-        out_specs=(own_spec, pack_spec, col_spec, P(axis), col_spec,
-                   P(axis)),
+        out_specs=(col_spec, P(axis), P(axis)),
     )
 
-    # ---- shard-local fused build + first matvec (TPU only) ----------------
-    # Mirrors the single-chip engine's build_mv: one pass evaluates the pair
-    # coefficients, writes the per-shard A/pos_cyc, and applies them to the
-    # (multi-RHS) force windows.
-    def _local_build_mv(ownp_l, pack_l, j0_l, nv_l, zsh_l, f_l, px, py, pz,
-                        mask, tilt):
-        NR = f_l.shape[0]
-        bins_loc = CellBins(
-            px=exchange_x(px, seam_shift=True), py=exchange_x(py),
-            pz=exchange_x(pz), mask=exchange_x(mask),
-            pid=None, cell_of=None, rank_of=None, overflow=None,
-        )
-        f_ext = exchange_x(f_l)
-        blocks, pos_cyc, u = bdn.build_mv_banded(
-            bins_loc, tilt, spec_loc, config.cheb, p.L, p.ewald_cut,
-            p.ewald_dr, j0_l, nv_l, zsh_l, ownp_l, f_ext, p.self_mobility,
-            pack=pack_l or None,
-        )
-        u = u.reshape(NR, nxl + 2, ncy, S)[:, 1:-1]
-        return blocks, pos_cyc, u.reshape(NR, nxl * ncy, S)
-
-    local_build_mv = _shard_map(
-        _local_build_mv, mesh,
-        in_specs=(own_spec, pack_spec, col_spec, P(axis), col_spec, col_spec)
-        + (P(axis, None),) * 4 + (P(),),
-        out_specs=(blocks_spec, pcyc_spec, col_spec),
-    )
-
-    # ---- shard-local matvec: halo-exchange f, kernel, slice interior ------
-    # Both branches rebuild the pair GEOMETRY from the exchanged slab
-    # coordinates (seam_shift keeps slab-local x physically contiguous for
-    # the kernel's scalar-shift minimum image); only the TPU branch streams
-    # the stored (imrr, bco/d²) coefficients.
-    def _local_matvec(blocks_l, pcyc_l, ownp_l, pack_l, j0_l, nv_l, zsh_l,
-                      f_l, px, py, pz, mask, tilt):
+    # ---- shard-local matvec: halo-exchange f, matvec, slice interior ------
+    def _local_matvec(j0_l, nv_l, f_l, px, py, pz, mask, tilt):
         NR = f_l.shape[0]                      # 3·nrhs stacked RHS rows
-        f_ext = exchange_x(f_l)
-        if interpret:
-            bins_loc = CellBins(
-                px=exchange_x(px, seam_shift=True), py=exchange_x(py),
-                pz=exchange_x(pz), mask=exchange_x(mask),
-                pid=None, cell_of=None, rank_of=None, overflow=None,
-            )
-            # the pure-XLA reference is single-RHS; run each 3-row block
-            u = jnp.concatenate([
-                bdn.matvec_banded_reference(
-                    bins_loc, tilt, spec_loc, config.cheb, p.L, p.ewald_cut,
-                    p.ewald_dr, j0_l, nv_l, f_ext[r:r + 3], p.self_mobility,
-                )
-                for r in range(0, NR, 3)
-            ], axis=0)
-        else:
-            u = bdn.matvec_banded(
-                blocks_l, pcyc_l, ownp_l, j0_l, nv_l, zsh_l, spec_loc,
-                f_ext, p.self_mobility, p.L, pack=pack_l or None,
-            )
+        u = nf_matvec(local_bins(px, py, pz, mask), tilt, spec_loc, j0_l,
+                      nv_l, exchange_x(f_l))
         u = u.reshape(NR, nxl + 2, ncy, S)[:, 1:-1]
         return u.reshape(NR, nxl * ncy, S)
 
     local_matvec = _shard_map(
         _local_matvec, mesh,
-        in_specs=(blocks_spec, pcyc_spec, own_spec, pack_spec, col_spec,
-                  P(axis), col_spec, col_spec)
-        + (P(axis, None),) * 4 + (P(),),
+        in_specs=(col_spec, P(axis), col_spec) + (P(axis, None),) * 4
+        + (P(),),
         out_specs=col_spec,
     )
 
@@ -274,74 +154,31 @@ def make_halo_engine(config: integrator.StepConfig, mesh: Mesh, axis="dp"):
             ff_bins, ff_f = bin_particles(
                 pos, box, integrator._ff_bin_spec(config), values=forces
             )
-        ownp_e, pack, j0e, nve, zshe, ovf2 = _local_prepare_call(
-            nf_bins, box.tilt_xy
+        tilt = jnp.asarray(box.tilt_xy, jnp.float32)
+        j0e, nve, ovf = local_prepare(
+            nf_bins.px, nf_bins.py, nf_bins.pz, nf_bins.mask, tilt
         )
-        ovf2 = ovf2.reshape(-1, 2)          # (D, [band, class]) per shard
-        if interpret:
-            # the reference matvec ignores blocks; keep (D,)-shaped
-            # placeholders so local_matvec's P(axis) in_specs hold
-            blocks_e = pcyc_e = jnp.zeros((D,), jnp.float32)
-        else:
-            blocks_e = pcyc_e = None      # filled by build_mv (fused build)
         ff_weights = integrator._ff_shared(config, ff_bins, box)
         overflow = (
             integrator._ovf(nf_bins.overflow, integrator.OVF_NF)
             | integrator._ovf(ff_bins.overflow, integrator.OVF_FF)
-            | integrator._ovf(jnp.any(ovf2[:, 0]), integrator.OVF_BAND)
-            | integrator._ovf(jnp.any(ovf2[:, 1]), integrator.OVF_CLASS)
+            | integrator._ovf(jnp.any(ovf), integrator.OVF_BAND)
         )
         return (
-            _HaloCtx(nf_bins, ff_bins, j0e, nve, zshe, blocks_e, pcyc_e,
-                     ownp_e, ff_weights,
-                     jnp.asarray(box.tilt_xy, jnp.float32), pack,
-                     nf_f, ff_f),
+            _HaloCtx(nf_bins, ff_bins, j0e, nve, ff_weights, tilt, nf_f,
+                     ff_f),
             overflow,
-        )
-
-    def _local_prepare_call(nf_bins, tilt):
-        return local_prepare(
-            nf_bins.px, nf_bins.py, nf_bins.pz, nf_bins.mask,
-            jnp.asarray(tilt, jnp.float32),
         )
 
     def _matvec(ctx, cells):
         b = ctx.nf_bins
-        return local_matvec(
-            ctx.blocks_e, ctx.pcyc_e, ctx.ownp_e, ctx.cls, ctx.j0e,
-            ctx.nve, ctx.zshe, cells, b.px, b.py, b.pz, b.mask, ctx.tilt,
-        )
-
-    def mreal_t(ctx, cells):
-        # native (3, ncx*ncy, S) in/out — matches base.slots_of_psi's layout
-        return _matvec(ctx, cells)
-
-    def mreal_t2(ctx, cells):
-        """(6, ncx*ncy, S) two-RHS matvec sharing one per-shard A stream —
-        enables step_impl's fuse2 path (the deterministic M·F riding the
-        first Lanczos matvec) under shard_map, same as single-chip."""
-        return _matvec(ctx, cells)
+        return local_matvec(ctx.j0e, ctx.nve, cells, b.px, b.py, b.pz,
+                            b.mask, ctx.tilt)
 
     def f_slots_t(ctx, values):
         from ..cellbins import vec_to_cells
 
         return vec_to_cells(ctx.nf_bins, bs.bins, values)
-
-    def build_mv(ctx, ft):
-        """Fused shard-local build + first (multi-RHS) matvec: fills
-        ctx.blocks_e / ctx.pcyc_e and returns (ctx, M·ft) — the step's
-        first near-field matvec never re-reads the per-shard A stream,
-        matching the single-chip engine.  Off-TPU the pure-XLA reference
-        rebuilds pair functions per matvec anyway, so a plain matvec
-        serves (blocks stay placeholders)."""
-        if interpret:
-            return ctx, _matvec(ctx, ft)
-        b = ctx.nf_bins
-        blocks_e, pcyc_e, u = local_build_mv(
-            ctx.ownp_e, ctx.cls, ctx.j0e, ctx.nve, ctx.zshe, ft,
-            b.px, b.py, b.pz, b.mask, ctx.tilt,
-        )
-        return ctx._replace(blocks_e=blocks_e, pcyc_e=pcyc_e), u
 
     def mreal_particles(ctx, forces):
         from ..cellbins import vec_from_cells, vec_to_cells
@@ -356,10 +193,11 @@ def make_halo_engine(config: integrator.StepConfig, mesh: Mesh, axis="dp"):
     e = E()
     e.prepare = prepare
     e.prepared_f = lambda ctx: ctx.nf_f
-    e.mreal_t = mreal_t
-    e.mreal_t2 = mreal_t2
+    # native (3·nrhs, ncx*ncy, S) in/out, matching base.slots_of_psi; the
+    # (6, ...) two-RHS form enables step_impl's fused M·F path
+    e.mreal_t = _matvec
+    e.mreal_t2 = _matvec
     e.f_slots_t = f_slots_t
-    e.build_mv = build_mv
     e.mreal_particles = mreal_particles
     e.spread = base.spread
     e.contract = base.contract

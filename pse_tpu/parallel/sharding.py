@@ -1,4 +1,4 @@
-"""Multi-chip execution over a jax.sharding.Mesh (ICI scaling).
+"""Multi-device execution over a jax.sharding.Mesh.
 
 The reference is single-GPU only (Stokes.cc:104-109); this module is new
 capability (SURVEY.md §5 "long-context analog"): the particle arrays and the
@@ -15,7 +15,8 @@ Sharding layout ("dp" axis):
   * the derived k-space arrays and small scalars: replicated.
 
 This gives data-parallel near-field + spread/contract with a distributed FFT
-— the natural decomposition for this workload class on a TPU pod slice.
+— the natural decomposition for this workload class on a few devices of
+one host (on GPUs XLA hands the collectives to NCCL).
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Derived-parameter computation for the PSE method (TPU build).
+"""Derived-parameter computation for the PSE method.
 
 Reproduces the derivations of the reference ``Stokes::setParams``
 (Stokes.cc:129-424) exactly:

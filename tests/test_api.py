@@ -307,12 +307,12 @@ def test_run_raises_on_persistent_overflow():
 
 def test_nlist_tree_warns_stencil_is_genuine():
     """tree is accepted for reference API parity (integrate.py:60-68) but
-    maps to the TPU cell backend with a documented warning; stencil is a
+    maps to the cell backend with a documented warning; stencil is a
     genuine finer-cell backend (neighbors.NeighborSpec.subdiv=2) and builds
     a subdivided neighbor spec without warning."""
     import warnings
 
-    with pytest.warns(UserWarning, match="no TPU-native analogue"):
+    with pytest.warns(UserWarning, match="no analogue here"):
         m = pse.integrate.PSEv1(nlist_type="tree")
     assert m.nlist_type == "tree"
     with warnings.catch_warnings():

@@ -1,14 +1,18 @@
 """Banded (z-sorted column) engine validation against the gather engine.
 
-The banded engine (ops/banded_nearfield.py) is the round-2 TPU hot path:
-same physics as the blocked engine, near-field stored as rank-band blocks.
-Pallas kernels run in interpret mode on CPU (integrator._pallas_interpret).
+The banded engine (ops/banded_nearfield.py) is the large-N path: same
+physics as the blocked engine, near field as rank-band windows.  On the CPU
+the engine runs the plain-XLA reference matvec; the Triton kernel runs here
+in interpret mode, against that reference.
 
 The banded layout needs well-occupied columns (capacity >= window), so these
 tests use denser systems than test_blocked.py: N ~ 1000-3000 in a ~24-box.
 """
 
+from functools import partial
+
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 
@@ -120,265 +124,192 @@ def test_banded_band_overflow_flags():
     assert bool(overflow)
 
 
-def test_banded_kernels_match_reference_interpret():
-    """The Pallas build+matvec kernels (interpret mode) agree with the
-    pure-XLA reference path that CPU runs use.  One small config — interpret
-    tracing costs ~2 min; the kernels' hardware behavior is exercised by
-    tools/trial_banded.py on the TPU."""
-    from pse_tpu.box import make_box
-    from pse_tpu.cellbins import bin_columns, vec_to_cells
-    from pse_tpu.ops import banded_nearfield as bdn
-
-    rng = np.random.default_rng(9)
-    n, L = 1080, 24.0
-    pos = rng.uniform(-L / 2, L / 2, size=(n, 3)).astype(np.float32)
-    forces = rng.normal(size=(n, 3)).astype(np.float32)
-    params = pse.make_params(xi=0.5, error=1e-3, L=L)
-    cfg = integrator.make_config(params, n, thermal=False, engine="banded",
-                                 block_dtype="float32")
-    bs, cheb, p = cfg.band_spec, cfg.cheb, cfg.params
-    box = make_box(p.L, 0.07)
-    bins = bin_columns(jnp.asarray(pos), box, bs.bins)
-    j0, nv, ovf, zsh = bdn.compute_windows(bins, bs, box, p.ewald_cut)
-    assert not bool(ovf)
-    f_cells = vec_to_cells(bins, bs.bins, jnp.asarray(forces))
-
-    blocks, pos_cyc = bdn.build_banded_blocks(
-        bins, box.tilt_xy, bs, cheb, p.L, p.ewald_cut, p.ewald_dr, j0, nv,
-        zsh, interpret=True,
-    )
-    u_kernel = bdn.matvec_banded(
-        blocks, pos_cyc, bdn.make_own_pos(bins, bs), j0, nv, zsh, bs,
-        f_cells, p.self_mobility, p.L, interpret=True,
-    )
-    u_ref = bdn.matvec_banded_reference(
-        bins, box.tilt_xy, bs, cheb, p.L, p.ewald_cut, p.ewald_dr, j0, nv,
-        f_cells, p.self_mobility,
-    )
-    assert _rel(u_kernel, u_ref) < 2e-6
-
-
-def test_banded_w64_window_interpret():
-    """64-lane window geometry (tall box -> narrow band): the kernels'
-    window reads/rolls/slices are exercised at W=64, where every W-offset
-    lane slice is 128-misaligned.  Interpret mode; the TPU behavior is
-    covered by the bench gate at xi where W=64 engages."""
+def _kernel_case(n, L, seed, tilt, window=None, rows=32, cap=None,
+                 nrhs=1, xi=0.5):
+    """(bins, spec, cheb, params, j0, nv, f_cells) for a uniform random
+    fill, with the window / capacity optionally pinned."""
     from pse_tpu.box import make_box
     from pse_tpu.cellbins import bin_columns, vec_to_cells
     from pse_tpu.ops import banded_nearfield as bdn
     from pse_tpu.ops.chebyshev import fit_pair_functions
 
-    rng = np.random.default_rng(12)
-    n, L = 1300, (24.0, 24.0, 96.0)
-    params = pse.make_params(xi=0.5, error=1e-3, L=L)
-    # rows=16 keeps the window need under 64 lanes for this geometry (the
-    # production default of 32 rows exercises W=128 everywhere else).
-    # make_band_spec's safety margin now rounds this geometry up to 128, so
-    # pin W=64 directly — the kernels' W=64 read/roll/slice paths are the
-    # unit under test, not the chooser (compute_windows' no-overflow assert
-    # below still proves W=64 is geometrically sufficient here).
-    bs = bdn.make_band_spec(n, L, params.ewald_cut, block_dtype="float32",
-                            rows=16)
-    assert bs is not None and bs.rows == 16, bs
-    bs = bs._replace(window=64)
-    cheb = fit_pair_functions(0.5, params.ewald_dr, params.ewald_cut,
-                              tol=1e-6)
+    rng = np.random.default_rng(seed)
+    params = pse.make_params(xi=xi, error=1e-3, L=L)
+    bs = bdn.make_band_spec(n, params.L, params.ewald_cut, rows=rows)
+    assert bs is not None
+    if window is not None:
+        bs = bs._replace(window=window)
+    if cap is not None:
+        bs = bs._replace(bins=bs.bins._replace(cap=cap))
+    assert bs.bins.cap >= bs.window and bs.bins.cap % bs.rows == 0
+    cheb = fit_pair_functions(xi, params.ewald_dr, params.ewald_cut,
+                              params.radius, tol=1e-6)
     pos = rng.uniform(-0.5, 0.5, size=(n, 3)).astype(np.float32) * np.array(
-        L, np.float32
+        params.L, np.float32
     )
-    forces = rng.normal(size=(n, 3)).astype(np.float32)
-    box = make_box(L, 0.05)
+    box = make_box(params.L, tilt)
     bins = bin_columns(jnp.asarray(pos), box, bs.bins)
-    j0, nv, ovf, zsh = bdn.compute_windows(bins, bs, box, params.ewald_cut)
-    assert not bool(ovf)
-    f_cells = vec_to_cells(bins, bs.bins, jnp.asarray(forces))
+    j0, nv, _ = bdn.compute_windows(bins, bs, box, params.ewald_cut)
+    f_cells = jnp.concatenate([
+        vec_to_cells(bins, bs.bins, jnp.asarray(
+            rng.normal(size=(n, 3)).astype(np.float32)))
+        for _ in range(nrhs)
+    ], axis=0)
+    return bins, bs, cheb, params, j0, nv, f_cells, tilt
 
-    blocks, pos_cyc = bdn.build_banded_blocks(
-        bins, box.tilt_xy, bs, cheb, params.L, params.ewald_cut,
-        params.ewald_dr, j0, nv, zsh, interpret=True,
-    )
+
+def _kernel_vs_reference(case):
+    """(u_kernel, u_ref): the Triton kernel (interpret mode) against one
+    reference call per right-hand side."""
+    from pse_tpu.ops import banded_nearfield as bdn
+
+    bins, bs, cheb, p, j0, nv, f_cells, tilt = case
     u_kernel = bdn.matvec_banded(
-        blocks, pos_cyc, bdn.make_own_pos(bins, bs), j0, nv, zsh, bs,
-        f_cells, params.self_mobility, params.L, interpret=True,
+        bins, tilt, bs, cheb, p.L, p.ewald_cut, p.ewald_dr, j0, nv,
+        f_cells, p.self_mobility, interpret=True,
     )
-    u_ref = bdn.matvec_banded_reference(
-        bins, box.tilt_xy, bs, cheb, params.L, params.ewald_cut,
-        params.ewald_dr, j0, nv, f_cells, params.self_mobility,
-    )
-    assert _rel(u_kernel, u_ref) < 2e-6
+    u_ref = jnp.concatenate([
+        bdn.matvec_banded_reference(
+            bins, tilt, bs, cheb, p.L, p.ewald_cut, p.ewald_dr, j0, nv,
+            f_cells[r:r + 3], p.self_mobility,
+        )
+        for r in range(0, f_cells.shape[0], 3)
+    ], axis=0)
+    return u_kernel, u_ref
+
+
+def _max_rel(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    return float(np.max(np.abs(a - b)) / np.max(np.abs(b)))
+
+
+def test_banded_kernels_match_reference_interpret():
+    """The Triton matvec kernel (interpret mode) agrees with the plain-XLA
+    reference that CPU runs use: both are f32 FMA arithmetic with no
+    tensor-core product, so only summation order differs."""
+    case = _kernel_case(1080, 24.0, seed=9, tilt=0.07)
+    u_kernel, u_ref = _kernel_vs_reference(case)
+    assert u_kernel.shape == u_ref.shape == case[6].shape
+    assert _max_rel(u_kernel, u_ref) < 1e-5
+
+
+def test_banded_w64_window_interpret():
+    """64-lane window geometry (tall box -> narrow band, rows=16): the
+    narrowest window the chooser makes.  compute_windows' no-overflow check proves W=64
+    is geometrically sufficient here."""
+    from pse_tpu.ops import banded_nearfield as bdn
+
+    case = _kernel_case(1300, (24.0, 24.0, 96.0), seed=12, tilt=0.05,
+                        window=64, rows=16)
+    bins, bs, _, p, _, _, _, tilt = case
+    _, _, ovf = bdn.compute_windows(bins, bs, pse.make_box(p.L, tilt),
+                                    p.ewald_cut)
+    assert not bool(ovf)
+    u_kernel, u_ref = _kernel_vs_reference(case)
+    assert _max_rel(u_kernel, u_ref) < 1e-5
 
 
 def test_banded_2rhs_matvec_interpret():
-    """nrhs=2 (stacked right-hand sides sharing one A stream, the fused
-    M·F + first-Lanczos-matvec path) must equal two single matvecs."""
-    from pse_tpu.box import make_box
-    from pse_tpu.cellbins import bin_columns, vec_to_cells
+    """nrhs=2 (stacked right-hand sides sharing one pair evaluation, the
+    fused M·F + first-Lanczos-matvec path) must equal two single-RHS
+    kernel calls bit for bit: each RHS is reduced in the same order."""
     from pse_tpu.ops import banded_nearfield as bdn
 
-    rng = np.random.default_rng(21)
-    n, L = 1080, 24.0
-    pos = rng.uniform(-L / 2, L / 2, size=(n, 3)).astype(np.float32)
-    f1 = rng.normal(size=(n, 3)).astype(np.float32)
-    f2 = rng.normal(size=(n, 3)).astype(np.float32)
-    params = pse.make_params(xi=0.5, error=1e-3, L=L)
-    cfg = integrator.make_config(params, n, thermal=False, engine="banded",
-                                 block_dtype="float32")
-    bs, cheb, p = cfg.band_spec, cfg.cheb, cfg.params
-    box = make_box(p.L, 0.05)
-    bins = bin_columns(jnp.asarray(pos), box, bs.bins)
-    j0, nv, ovf, zsh = bdn.compute_windows(bins, bs, box, p.ewald_cut)
-    assert not bool(ovf)
-    c1 = vec_to_cells(bins, bs.bins, jnp.asarray(f1))
-    c2 = vec_to_cells(bins, bs.bins, jnp.asarray(f2))
+    bins, bs, cheb, p, j0, nv, f2, tilt = _kernel_case(
+        1080, 24.0, seed=21, tilt=0.05, nrhs=2
+    )
 
-    blocks, pos_cyc = bdn.build_banded_blocks(
-        bins, box.tilt_xy, bs, cheb, p.L, p.ewald_cut, p.ewald_dr, j0, nv,
-        zsh, interpret=True,
-    )
-    own_pos = bdn.make_own_pos(bins, bs)
-    u2 = bdn.matvec_banded(
-        blocks, pos_cyc, own_pos, j0, nv, zsh, bs,
-        jnp.concatenate([c1, c2], axis=0), p.self_mobility, p.L,
-        interpret=True,
-    )
-    ua = bdn.matvec_banded(
-        blocks, pos_cyc, own_pos, j0, nv, zsh, bs, c1, p.self_mobility,
-        p.L, interpret=True,
-    )
-    ub = bdn.matvec_banded(
-        blocks, pos_cyc, own_pos, j0, nv, zsh, bs, c2, p.self_mobility,
-        p.L, interpret=True,
-    )
-    assert _rel(u2[0:3], ua) < 1e-6
-    assert _rel(u2[3:6], ub) < 1e-6
+    def mv(f):
+        return bdn.matvec_banded(bins, tilt, bs, cheb, p.L, p.ewald_cut,
+                                 p.ewald_dr, j0, nv, f, p.self_mobility,
+                                 interpret=True)
+
+    u2 = mv(f2)
+    np.testing.assert_array_equal(np.asarray(u2[0:3]), np.asarray(mv(f2[0:3])))
+    np.testing.assert_array_equal(np.asarray(u2[3:6]), np.asarray(mv(f2[3:6])))
 
 
-def test_banded_build_mv_fused_interpret():
-    """The fused build+matvec kernel (bdn.build_mv_banded — the step's
-    first near-field matvec, which never re-reads the A stream) must
-    produce the SAME A / pos_cyc as build_banded_blocks and the same u as
-    matvec_banded, for nrhs=2 (the fuse2 path) — the rounded in-register
-    coefficients it applies are exactly the stored ones."""
-    from pse_tpu.box import make_box
-    from pse_tpu.cellbins import bin_columns, vec_to_cells
+def test_banded_build_mv_fused_interpret(monkeypatch):
+    """The engine's first near-field matvec (mreal_t2 with the step's two
+    stacked right-hand sides) run through the Triton kernel agrees with
+    the CPU reference implementation, through the engine's own dispatch."""
     from pse_tpu.ops import banded_nearfield as bdn
 
     rng = np.random.default_rng(23)
     n, L = 1080, 24.0
-    pos = rng.uniform(-L / 2, L / 2, size=(n, 3)).astype(np.float32)
-    f1 = rng.normal(size=(n, 3)).astype(np.float32)
-    f2 = rng.normal(size=(n, 3)).astype(np.float32)
+    pos = jnp.asarray(rng.uniform(-L / 2, L / 2, size=(n, 3)).astype(np.float32))
+    f1 = jnp.asarray(rng.normal(size=(n, 3)).astype(np.float32))
+    f2 = jnp.asarray(rng.normal(size=(n, 3)).astype(np.float32))
     params = pse.make_params(xi=0.5, error=1e-3, L=L)
     cfg = integrator.make_config(params, n, thermal=False, engine="banded",
                                  block_dtype="float32")
-    bs, cheb, p = cfg.band_spec, cfg.cheb, cfg.params
-    box = make_box(p.L, 0.07)
-    bins = bin_columns(jnp.asarray(pos), box, bs.bins)
-    j0, nv, ovf, zsh = bdn.compute_windows(bins, bs, box, p.ewald_cut)
-    assert not bool(ovf)
-    ft = jnp.concatenate([
-        vec_to_cells(bins, bs.bins, jnp.asarray(f1)),
-        vec_to_cells(bins, bs.bins, jnp.asarray(f2)),
-    ], axis=0)
-    own_pos = bdn.make_own_pos(bins, bs)
 
-    blocks_f, pcyc_f, u_f = bdn.build_mv_banded(
-        bins, box.tilt_xy, bs, cheb, p.L, p.ewald_cut, p.ewald_dr, j0, nv,
-        zsh, own_pos, ft, p.self_mobility, interpret=True,
-    )
-    blocks, pos_cyc = bdn.build_banded_blocks(
-        bins, box.tilt_xy, bs, cheb, p.L, p.ewald_cut, p.ewald_dr, j0, nv,
-        zsh, interpret=True,
-    )
-    u = bdn.matvec_banded(
-        blocks, pos_cyc, own_pos, j0, nv, zsh, bs, ft, p.self_mobility,
-        p.L, interpret=True,
-    )
-    np.testing.assert_array_equal(np.asarray(blocks_f), np.asarray(blocks))
-    np.testing.assert_array_equal(np.asarray(pcyc_f), np.asarray(pos_cyc))
-    assert _rel(u_f, u) < 1e-6
+    def first_matvec():
+        eng = integrator._engine(cfg)
+
+        @jax.jit
+        def run(pos, f1, f2):
+            box = integrator._box_of(cfg, 0.07)
+            ctx, ovf = eng.prepare(cfg, pos, box)
+            ft = jnp.concatenate(
+                [eng.f_slots_t(ctx, f1), eng.f_slots_t(ctx, f2)], axis=0
+            )
+            return eng.mreal_t2(ctx, ft), ovf
+
+        return run(pos, f1, f2)
+
+    u_ref, ovf = first_matvec()                 # CPU: the reference
+    assert not int(ovf)
+    monkeypatch.setattr(bdn, "select_nf_impl",
+                        lambda platform=None: bdn.NF_TRITON)
+    monkeypatch.setattr(bdn, "matvec_banded",
+                        partial(bdn.matvec_banded, interpret=True))
+    u_kernel, _ = first_matvec()
+    assert u_kernel.shape == (6,) + u_ref.shape[1:]
+    assert _max_rel(u_kernel, u_ref) < 1e-5
 
 
-def test_banded_class_packed_interpret():
-    """Occupancy-class packed kernels (spec.classes) give the same result
-    as the reference path: the packed build_mv / matvec launch one kernel
-    per class over need-sorted columns with the all-pad tail tiles
-    dropped, which must be EXACT (those tiles hold identically-zero A)."""
-    from pse_tpu.box import make_box
-    from pse_tpu.cellbins import bin_columns, vec_to_cells
+@pytest.mark.parametrize("nrhs", [1, 2])
+@pytest.mark.parametrize("window", [64, 128, 192])
+@pytest.mark.parametrize("tilt", [0.0, 0.3])
+def test_banded_kernel_cases_interpret(tilt, window, nrhs):
+    """Kernel vs reference over the tilt / window / RHS-count grid the
+    card runs (W=192 is the regrown window; two to six 32-lane chunks).
+    Windows are pinned: an overflowing window truncates both sides the
+    same way, so the comparison holds regardless."""
+    case = _kernel_case(1500, 24.0, seed=100 + window + nrhs, tilt=tilt,
+                        window=window, nrhs=nrhs)
+    u_kernel, u_ref = _kernel_vs_reference(case)
+    assert _max_rel(u_kernel, u_ref) < 1e-5
+
+
+def test_banded_kernel_sparse_tail_tiles_interpret():
+    """A capacity far above the occupancy leaves the tail tiles of every
+    column all padding: those programs run no offset (the early exit) and
+    must store exact zeros, and the occupied tiles must still match."""
+    case = _kernel_case(1080, 24.0, seed=41, tilt=0.1, cap=320)
+    bins, bs, _, _, _, nv, _, _ = case
+    assert int(jnp.max(nv)) + bs.rows <= bs.bins.cap    # >= 1 empty tile
+    u_kernel, u_ref = _kernel_vs_reference(case)
+    assert _max_rel(u_kernel, u_ref) < 1e-5
+    pad = np.asarray(bins.mask) == 0
+    assert np.all(np.asarray(u_kernel)[:, pad] == 0.0)
+
+
+def test_select_nf_impl_dispatch():
+    """Explicit near-field choice: Triton on the GPU, the reference on the
+    CPU (this run), an error anywhere else — never a silent fallback."""
     from pse_tpu.ops import banded_nearfield as bdn
 
-    rng = np.random.default_rng(31)
-    n, L = 1080, 24.0
-    pos = rng.uniform(-L / 2, L / 2, size=(n, 3)).astype(np.float32)
-    forces = rng.normal(size=(n, 3)).astype(np.float32)
-    params = pse.make_params(xi=0.5, error=1e-3, L=L)
-    cfg = integrator.make_config(params, n, thermal=False, engine="banded",
-                                 block_dtype="float32")
-    bs0 = cfg.band_spec
-    t_cap = bs0.bins.cap // bs0.rows
-    C = bs0.bins.n_cells[0] * bs0.bins.n_cells[1]
-    # manual 2-class split (the chooser wants larger C): most columns one
-    # tile short of the cap — exercises packing, tail-zeroing, and the
-    # packed->actual permutation on a column set with varying need
-    bs = bs0._replace(classes=((t_cap - 1, C - 2), (t_cap, 2)))
-    cheb, p = cfg.cheb, cfg.params
-    box = make_box(p.L, 0.07)
-    bins = bin_columns(jnp.asarray(pos), box, bs.bins)
-    j0, nv, ovf, zsh = bdn.compute_windows(bins, bs, box, p.ewald_cut)
-    assert not bool(ovf)
-    perm, inv, c_ovf = bdn.class_assignment(bs, nv)
-    assert not bool(c_ovf)
-    own_full = bdn.make_own_pos(bins, bs)
-    own_pos = tuple(
-        jnp.take(own_full, perm[off:off + ck], axis=0)
-        for (tk, ck, off) in bdn.class_segments(bs)
-    )
-    f_cells = vec_to_cells(bins, bs.bins, jnp.asarray(forces))
-
-    u_ref = bdn.matvec_banded_reference(
-        bins, box.tilt_xy, bs, cheb, p.L, p.ewald_cut, p.ewald_dr, j0, nv,
-        f_cells, p.self_mobility,
-    )
-    blocks, pos_cyc, u_bmv = bdn.build_mv_banded(
-        bins, box.tilt_xy, bs, cheb, p.L, p.ewald_cut, p.ewald_dr, j0, nv,
-        zsh, own_pos, f_cells, p.self_mobility, interpret=True,
-        pack=(perm, inv),
-    )
-    assert isinstance(blocks, tuple) and len(blocks) == 2
-    assert _rel(u_bmv, u_ref) < 2e-6
-    u_mv = bdn.matvec_banded(
-        blocks, pos_cyc, own_pos, j0, nv, zsh, bs, f_cells,
-        p.self_mobility, p.L, interpret=True, pack=(perm, inv),
-    )
-    assert _rel(u_mv, u_ref) < 2e-6
-
-
-def test_banded_class_assignment_overflow():
-    """Class-capacity overflow must flag (sticky -> grow_config drops to a
-    single class) when more columns need the top tile count than it holds."""
-    from pse_tpu.ops import banded_nearfield as bdn
-    from pse_tpu.cellbins import BinSpec
-
-    spec = bdn.BandSpec(
-        bins=BinSpec(n_cells=(4, 4, 1), cap=128), offsets=bdn.full_xy_offsets(),
-        window=64, rows=32, classes=((1, 15), (4, 1)),
-    )
-    nv = jnp.full((16,), 100, jnp.int32)      # every column needs 4 tiles
-    _, _, ovf = bdn.class_assignment(spec, nv)
-    assert bool(ovf)
-    nv = nv.at[1:].set(20)                    # one heavy column fits class 2
-    perm, inv, ovf = bdn.class_assignment(spec, nv)
-    assert not bool(ovf)
-    assert int(perm[0]) == 0                  # heaviest column packs first
-    assert bool((perm[inv] == jnp.arange(16)).all())
-    cfg_like = integrator.grow_config(
-        integrator.make_config(pse.make_params(xi=0.5, error=1e-3, L=24.0),
-                               1080, thermal=False, engine="banded"),
-        flags=integrator.OVF_CLASS,
-    )
-    assert (cfg_like.band_spec is None
-            or cfg_like.band_spec.classes is None)
+    assert bdn.select_nf_impl("gpu") == bdn.NF_TRITON
+    assert bdn.select_nf_impl("cpu") == bdn.NF_REFERENCE
+    assert bdn.select_nf_impl() == bdn.NF_REFERENCE
+    with pytest.raises(ValueError):
+        bdn.select_nf_impl("rocm")
+    cfg = integrator.make_config(pse.make_params(xi=0.5, error=1e-3, L=24.0),
+                                 1080, thermal=False, engine="banded")
+    with pytest.raises(ValueError):
+        integrator.banded_matvec(cfg, "interpreted")
 
 
 def test_banded_fused_forces_step_linearity():

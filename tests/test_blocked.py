@@ -1,6 +1,6 @@
 """Blocked (cell-dense) engine validation against the gather engine and the
-float64 oracle.  The blocked engine is the TPU-fast path; the gather engine
-is the independently-validated reference formulation."""
+float64 oracle.  The blocked engine is the API's default path; the gather
+engine is the independently-validated reference formulation."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -164,60 +164,36 @@ def test_cellbins_roundtrip():
     assert int(np.asarray(bins.mask).sum()) == n
 
 
-def test_fill_cells_pallas_matches_scatter_interpret():
-    """The ragged-shift binning kernel (the TPU path of bin_particles /
-    bin_columns) reproduces the XLA scatter fill exactly, including pad
-    slots, empty cells, and an overflowing cell.  Interpret mode — the TPU
-    behavior is covered by the bench's on-TPU correctness gate."""
-    from pse_tpu.cellbins import (
-        BinSpec, _cell_starts_counts, _fill_cells_pallas, _scatter_fields,
-        bin_particles,
-    )
-    import jax
+def test_bin_columns_fields_and_values():
+    """bin_columns' single windowed scatter: every particle lands in its
+    column's slots in ascending z, pad slots carry mask 0 / pid N /
+    positions 0, and values riding the binning match vec_to_cells."""
+    from pse_tpu.box import make_box
+    from pse_tpu.cellbins import BinSpec, bin_columns, vec_to_cells
 
     rng = np.random.default_rng(11)
-    n = 400
-    c_total, cap = 27, 32
-    # deliberately lumpy occupancy: an overflowing cell + empty cells
-    cid = np.sort(
-        np.concatenate([
-            rng.integers(0, c_total - 3, size=n - 40),   # last cells empty
-            np.full(40, 5),                       # overflow cell 5 (40+ > 32)
-        ])
-    ).astype(np.int32)
-    pos_sorted = rng.normal(size=(3, n)).astype(np.float32)
-    order = rng.permutation(n).astype(np.int32)
-
-    sorted_cid = jnp.asarray(cid)
-    starts, counts, rank_sorted, overflow = _cell_starts_counts(
-        sorted_cid, c_total, cap
+    n, L = 400, 24.0
+    pos = rng.uniform(-L / 2, L / 2, size=(n, 3)).astype(np.float32)
+    vals = rng.normal(size=(n, 3)).astype(np.float32)
+    spec = BinSpec(n_cells=(4, 4, 1), cap=48)
+    box = make_box((L, L, L), 0.2)
+    bins, fcells = bin_columns(jnp.asarray(pos), box, spec,
+                               values=jnp.asarray(vals))
+    assert not bool(bins.overflow)
+    mask = np.asarray(bins.mask) > 0
+    assert int(mask.sum()) == n
+    pid = np.asarray(bins.pid)
+    assert sorted(pid[mask].tolist()) == list(range(n))
+    assert (pid[~mask] == n).all()
+    assert (np.asarray(bins.px)[~mask] == 0).all()
+    for c in range(mask.shape[0]):
+        k = int(mask[c].sum())
+        assert mask[c, :k].all()                   # valid slots: a prefix
+        assert (np.diff(np.asarray(bins.pz)[c, :k]) >= 0).all()
+    np.testing.assert_array_equal(
+        np.asarray(fcells), np.asarray(vec_to_cells(bins, spec,
+                                                    jnp.asarray(vals)))
     )
-    assert bool(overflow)
-    k_px, k_py, k_pz, k_mask, k_pid = _fill_cells_pallas(
-        jnp.asarray(pos_sorted), jnp.asarray(order), starts, counts,
-        c_total, cap, n, interpret=True,
-    )
-    s_px, s_py, s_pz, s_mask, s_pid = _scatter_fields(
-        jnp.asarray(pos_sorted.T), jnp.asarray(order), sorted_cid,
-        jnp.minimum(rank_sorted, cap - 1), c_total, cap,
-    )
-    # valid slots agree exactly; an overflowing cell's clipped LAST slot is
-    # allowed to differ (scatter keeps the LAST overflowing particle, the
-    # kernel keeps rank cap-1) — both are discarded by the regrow contract
-    valid = np.asarray(s_mask) > 0
-    over = np.asarray(counts) > cap
-    assert over[5] and over.sum() >= 1
-    valid[over, cap - 1] = False
-    for ka, sa in ((k_px, s_px), (k_py, s_py), (k_pz, s_pz),
-                   (k_mask, s_mask), (k_pid, s_pid)):
-        np.testing.assert_array_equal(
-            np.asarray(ka)[valid], np.asarray(sa)[valid]
-        )
-    # pad slots: mask 0, pid n, positions 0
-    pad = ~np.asarray(k_mask).astype(bool)
-    pad[5, cap - 1] = False
-    assert (np.asarray(k_pid)[pad] == n).all()
-    assert (np.asarray(k_px)[pad] == 0).all()
 
 
 def test_no_forces_path_matches_zero_forces():

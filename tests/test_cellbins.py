@@ -1,8 +1,6 @@
 """Binning value-payload path: forces riding the binning sort must land in
 exactly the slots vec_to_cells scatters them to (same cell_of/rank_of
-placement).  Off-TPU this exercises _scatter_values; the Pallas fill
-kernel's v rows are covered by the on-TPU bench gate (mobility pre-bins its
-forces there)."""
+placement), through the binnings' _scatter_values."""
 
 import numpy as np
 import jax.numpy as jnp

@@ -92,12 +92,11 @@ def test_spread_contract_adjoint():
 
 
 def test_column_bf16_grade():
-    """Pin the bf16-weight column far field (the TPU production dtype at
-    error >= 1e-3, incl. the bf16-rounded H intermediate in contract_col)
-    against the f32 path: end-to-end spread/contract error must stay at
-    bf16-matmul grade (~1e-3), well inside the error=1e-3 budget the
-    dtype is gated on (make_col_spec).  Runs the bf16 arithmetic
-    explicitly so CI covers it off-TPU (the backend gate would pick f32)."""
+    """Pin the bf16-weight column far field (one of the two dtypes allowed
+    at error >= 1e-3, incl. the bf16-rounded H intermediate in
+    contract_col) against the f32 path: end-to-end spread/contract error
+    must stay at bf16-matmul grade (~1e-3), well inside the error=1e-3
+    budget the dtype is gated on (ff_weight_choice)."""
     pos, params, _, rng = _setup(seed=5)
     spec32 = cff.make_col_spec(params, pos.shape[0], "float32")
     spec16 = spec32._replace(weight_dtype="bfloat16")
@@ -118,9 +117,9 @@ def test_column_bf16_grade():
     # smoothness for roundings to average over).  Measured 2026-08-19:
     # spread max 4.0e-3 / rms 2.7e-3, contract max 5.1e-3 / rms 3.2e-3 —
     # ~15-30% above the pre-H-rounding bf16 path (2.9e-3/4.1e-3 max), same
-    # grade.  The physical end-to-end gauge is the full-step TPU-vs-f32
-    # contract (~6e-4 max rel, tools/check_determinism.py) — smooth grids
-    # average the per-element roundings down an order.
+    # grade.  Smooth physical grids average the per-element roundings down
+    # an order (the oracle gate in chip_smoke.py bounds the composed
+    # end-to-end error).
     g32 = cff.spread_col(bins, f_cells, box, spec32, params, fac32)
     g16 = cff.spread_col(bins, f_cells, box, spec16, params, fac16)
     err = float(jnp.max(jnp.abs(g16 - g32)) / jnp.max(jnp.abs(g32)))
@@ -136,68 +135,44 @@ def test_column_bf16_grade():
     assert err < 4e-3, f"bf16 contract rms error {err:.2e}"
 
 
-def test_contract_col_pallas_matches_xla():
-    """The fused Pallas contract (in-kernel window assembly + VMEM-resident
-    H — the TPU production path) must agree with the XLA einsum path it
-    replaces: same quadrature, same bf16 rounding points, so f32 factors
-    agree to round-off and bf16 factors to bf16 grade.  Interpret mode."""
-    pos, params, _, rng = _setup(seed=7)
-    spec = cff.make_col_spec(params, pos.shape[0], "float32")
-    assert spec is not None
-    L = params.L
-    box = Box(jnp.asarray(L, jnp.float32), jnp.asarray(0.3, jnp.float32))
-    bins = bin_particles(jnp.asarray(pos), box, spec.bins)
-    gv = jnp.asarray(
-        rng.normal(size=(3, params.Nx, params.Ny, params.Nz)).astype(np.float32)
-    )
-    fac = cff.build_col_factors(bins, box, spec, params)
-    u_xla = cff.contract_col(bins, gv, box, spec, params, fac)
-    u_pal = cff.contract_col_pallas(gv, spec, params, fac, interpret=True)
-    scale = float(jnp.max(jnp.abs(u_xla)))
-    np.testing.assert_allclose(
-        np.asarray(u_pal), np.asarray(u_xla), atol=2e-5 * scale
-    )
+@pytest.mark.parametrize("error,full,dtype", [
+    (1e-4, True, "float32"),
+    (1e-3, False, cff.FAST_FF_WEIGHT_DTYPE),
+    (1e-2, False, cff.FAST_FF_WEIGHT_DTYPE),
+])
+def test_ff_dtype_precision_from_error(error, full, dtype):
+    """Far-field dtype and precision come from ``error`` alone: below 1e-3
+    f32 at HIGHEST (a GPU would otherwise run f32 products in TF32), at or
+    above it the chosen fast dtype at DEFAULT — identically for both
+    far-field factorizations."""
+    import jax
 
-    spec16 = spec._replace(weight_dtype="bfloat16")
-    fac16 = cff.build_col_factors(bins, box, spec16, params)
-    u_xla16 = cff.contract_col(bins, gv, box, spec16, params, fac16)
-    u_pal16 = cff.contract_col_pallas(gv, spec16, params, fac16,
-                                      interpret=True)
-    # both round H to bf16 entering the z contraction; the remaining
-    # difference is dot-tiling order at bf16 grade
-    np.testing.assert_allclose(
-        np.asarray(u_pal16), np.asarray(u_xla16), atol=4e-3 * scale
+    params = pse.make_params(xi=0.5, error=error, L=24.0)
+    assert cff.ff_weight_choice(error) == (full, dtype)
+    for spec in (cff.make_col_spec(params, 600), bff.make_ff_spec(params, 600)):
+        assert spec.full_precision == full and spec.weight_dtype == dtype
+    assert cff.ff_matmul_precision(full) == (
+        jax.lax.Precision.HIGHEST if full else jax.lax.Precision.DEFAULT
     )
 
 
-def test_spread_col_pallas_matches_xla():
-    """The fused Pallas spread (X = f ⊗ wz kept in VMEM) must agree with
-    the XLA einsum path: identical quadrature, X never rounded differently
-    (both build it in the matmul dtype).  Interpret mode."""
-    pos, params, _, rng = _setup(seed=13)
-    spec = cff.make_col_spec(params, pos.shape[0], "float32")
-    assert spec is not None
-    L = params.L
-    box = Box(jnp.asarray(L, jnp.float32), jnp.asarray(-0.2, jnp.float32))
-    bins = bin_particles(jnp.asarray(pos), box, spec.bins)
-    f = rng.normal(size=(pos.shape[0], 3)).astype(np.float32)
-    f_cells = vec_to_cells(bins, spec.bins, jnp.asarray(f))
-    fac = cff.build_col_factors(bins, box, spec, params)
-    g_xla = cff.spread_col(bins, f_cells, box, spec, params, fac)
-    g_pal = cff.spread_col_pallas(f_cells, spec, params, fac, interpret=True)
-    scale = float(jnp.max(jnp.abs(g_xla)))
-    np.testing.assert_allclose(
-        np.asarray(g_pal), np.asarray(g_xla), atol=2e-5 * scale
-    )
+def test_ff_dtype_never_asks_the_backend(monkeypatch):
+    """Spec construction must not consult the backend; bf16 is refused
+    where the error target needs full precision."""
+    import jax
 
-    spec16 = spec._replace(weight_dtype="bfloat16")
-    fac16 = cff.build_col_factors(bins, box, spec16, params)
-    g_xla16 = cff.spread_col(bins, f_cells, box, spec16, params, fac16)
-    g_pal16 = cff.spread_col_pallas(f_cells, spec16, params, fac16,
-                                    interpret=True)
-    np.testing.assert_allclose(
-        np.asarray(g_pal16), np.asarray(g_xla16), atol=4e-3 * scale
-    )
+    def no_backend(*a, **k):
+        raise AssertionError("far-field spec consulted the backend")
+
+    monkeypatch.setattr(jax, "default_backend", no_backend)
+    params = pse.make_params(xi=0.5, error=1e-3, L=24.0)
+    assert cff.make_col_spec(params, 600, "bfloat16").weight_dtype == "bfloat16"
+    assert cff.make_col_spec(params, 600, "float32").weight_dtype == "float32"
+    with pytest.raises(ValueError):
+        cff.ff_weight_choice(1e-4, "bfloat16")
+    params4 = pse.make_params(xi=0.5, error=1e-4, L=24.0)
+    with pytest.raises(ValueError):
+        bff.make_ff_spec(params4, 600, "bfloat16")
 
 
 def test_column_is_default_ff_path():

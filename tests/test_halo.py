@@ -2,8 +2,8 @@
 engine, on the 8-virtual-CPU-device mesh (conftest provisions the devices).
 
 The halo engine must be numerically IDENTICAL in structure to the banded
-engine (same kernels on extended slabs), so tolerances here are f32-noise
-level, not physics level.
+engine (the same matvec on extended slabs), so tolerances here are
+f32-noise level, not physics level.
 """
 
 import numpy as np
@@ -31,8 +31,8 @@ def _setup(n, L, seed=0, thermal=False, slabs=4, **kw):
 
 
 def _mesh(d=4):
-    # 4 of the 8 virtual devices: full halo semantics at 1/3 the interpret
-    # cost (the 8-way case runs in __graft_entry__.dryrun_multichip)
+    # 4 of the 8 virtual devices: full halo semantics at half the cost of
+    # 8 (the 8-way case runs in __graft_entry__.dryrun_multichip)
     return sh.make_mesh(jax.devices("cpu")[:d])
 
 
@@ -69,17 +69,17 @@ def test_halo_step_matches_single_device_thermal():
 
     assert not bool(s8.nbr_overflow)
     assert int(s8.m_lanczos) == int(s1.m_lanczos)
-    # same RNG stream, same operators; bf16 blocks + f32 reduction orders
-    # differ across the slab boundary, hence the loose-ish displacement tol
+    # same RNG stream, same operators; f32 reduction orders differ across
+    # the slab boundary (and feed Lanczos), hence the loose-ish tolerance
     d1 = np.asarray(s1.pos) - pos
     d8 = np.asarray(s8.pos) - pos
     assert np.linalg.norm(d8 - d1) / np.linalg.norm(d1) < 5e-3
 
 
 def test_halo_mreal_t2_matches_two_singles():
-    """The halo engine's fused 2-RHS matvec (one A stream under shard_map)
-    must equal two single matvecs — the plumbing the step's fuse2 path
-    rides (exchange_x with 6 rows, NR-generic interior slicing)."""
+    """The halo engine's 2-RHS matvec under shard_map must equal two single
+    matvecs — the plumbing the step's fuse2 path rides (exchange_x with 6
+    rows, NR-generic interior slicing)."""
     n, L = 4_800, 33.0
     cfg, pos, forces = _setup(n, L, seed=3, thermal=True)
     mesh = _mesh()
@@ -103,54 +103,21 @@ def test_halo_requires_banded():
         halo.make_halo_engine(cfg, _mesh())
 
 
-def test_slab_class_sizing_covers_every_slab():
-    """make_config(shard_slabs=D, positions=...) sizes per-shard occupancy
-    classes on the EXTENDED local slab grid; the static shard-uniform
-    capacities must hold a numpy emulation of class_assignment on every
-    slab's measured needs (the real packed kernels only run on TPU)."""
+def test_halo_mobility_triton_kernel_interpret(monkeypatch):
+    """The halo engine with the Triton near-field kernel (interpret mode)
+    under shard_map agrees with the single-device reference engine: the
+    kernel runs on each slab's local extended grid."""
+    from functools import partial
+
     from pse_tpu.ops import banded_nearfield as bdn
 
-    n, phi = 100_000, 0.45
-    L = float((n * (4.0 / 3.0) * np.pi / phi) ** (1.0 / 3.0))
-    rng = np.random.default_rng(11)
-    # Uniform positions ≈ a RELAXED suspension histogram.  A fresh lattice
-    # is the wrong input here on purpose: its aliased column spread
-    # overflows the 4σ cap itself (needs.max() > t_cap → no classes), which
-    # is exactly why Simulation/bench re-measure from relaxed positions.
-    pos = rng.uniform(-L / 2, L / 2, size=(n, 3)).astype(np.float32)
-
-    D = 2
-    params = pse.make_params(xi=0.5, error=1e-3, L=L)
-    cfg = integrator.make_config(
-        params, n, thermal=True, engine="banded", shard_slabs=D,
-        positions=pos,
-    )
-    bs = cfg.band_spec
-    assert bs.slab_classes is not None, "slab classes should form at this n"
-    ncx, ncy, _ = bs.bins.n_cells
-    nxl = ncx // D
-    C_loc = (nxl + 2) * ncy
-    assert sum(c for _, c in bs.slab_classes) == C_loc
-    assert bs.slab_classes[-1][0] == bs.bins.cap // bs.rows
-
-    counts = bdn.measure_col_counts(bs, pos, params.L)
-    slab_counts = bdn.make_slab_counts(bs, D, counts)
-    assert slab_counts.shape == (D, C_loc)
-    # make_slab_counts geometry: slab d = x-layers [d*nxl-1, (d+1)*nxl] mod ncx
-    cg = counts.reshape(ncx, ncy)
-    for d in range(D):
-        xs = np.arange(d * nxl - 1, (d + 1) * nxl + 1) % ncx
-        assert (slab_counts[d] == cg[xs].reshape(-1)).all()
-
-    # class_assignment emulation: per slab, sorted descending needs must fit
-    # the per-class capacities (largest class first, class_segments order)
-    loc = bs._replace(
-        bins=bs.bins._replace(n_cells=(nxl + 2, ncy, 1)),
-        classes=bs.slab_classes, slab_classes=None,
-    )
-    R = bs.rows
-    for d in range(D):
-        need = -(-np.maximum(slab_counts[d], 1) // R)
-        need_desc = np.sort(need)[::-1]
-        for (tk, ck, off) in bdn.class_segments(loc):
-            assert need_desc[off] <= tk, (d, tk, ck, off, need_desc[off])
+    n, L = 4_800, 33.0
+    cfg, pos, forces = _setup(n, L, seed=4, block_dtype="float32")
+    u1, ov1 = integrator.mobility(cfg, pos, forces)
+    monkeypatch.setattr(bdn, "select_nf_impl",
+                        lambda platform=None: bdn.NF_TRITON)
+    monkeypatch.setattr(bdn, "matvec_banded",
+                        partial(bdn.matvec_banded, interpret=True))
+    u4, ov4 = halo.make_halo_mobility(cfg, _mesh())(pos, forces)
+    assert not bool(ov1) and not bool(ov4)
+    assert _rel(u4, u1) < 2e-5

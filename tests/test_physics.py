@@ -264,9 +264,9 @@ def test_dense_suspension_phi045():
 def test_dense_error_knob_scales_accuracy():
     """End-to-end accuracy must TIGHTEN when the user requests error=1e-4:
     the stricter parametrization (larger rcut/grid, Stokes.cc:135-236
-    derivation chain) plus the machinery it flips (f32 pair blocks,
-    full-precision far-field dots — integrator.make_config / FfSpec
-    .full_precision) has to beat the documented ~1.5e-2 dense deviation of
+    derivation chain) plus the machinery it flips (tight pair-function
+    fit, full-precision far-field dots — integrator.make_config /
+    ColFfSpec.full_precision) has to beat the documented ~1.5e-2 dense deviation of
     the error=1e-3 config (test_dense_suspension_phi045) by several× at
     the same φ=0.45 geometry.  Pins that the `error` knob actually buys
     accuracy through the PRODUCTION banded path, not just in unit tests.
@@ -302,8 +302,14 @@ def test_dense_error_knob_scales_accuracy():
         params, n, thermal=False, engine="banded", max_tilt=0.0
     )
     assert cfg.engine == "banded", "must exercise the production engine"
-    # error < 1e-3 must auto-select f32 blocks (bf16 floors at ~5e-4)
-    assert cfg.band_spec.block_dtype == "float32"
+    # error < 1e-3 must auto-select the full-precision far field (f32 at
+    # Precision.HIGHEST — no TF32/bf16 floor) and the tight pair-function fit
+    assert cfg.colff_spec.full_precision
+    assert cfg.colff_spec.weight_dtype == "float32"
+    assert cfg.cheb == integrator.fit_pair_functions(
+        params.xi, params.ewald_dr, params.ewald_cut, params.radius,
+        tol=integrator._cheb_tol("float32"),
+    )
     u, overflow = integrator.mobility(cfg, pos, f_sed)
     assert not bool(overflow)
     u_ref = oracles.direct_ewald_velocity(pos, f_sed, params.L, params.xi)

@@ -50,12 +50,12 @@ def test_merge_row_inserts_replaces_and_keeps_others(tmp_path):
 
     # existing file with a headline row (no 'n') + extra top-level keys:
     # merging an N row must not touch either
-    d["chip"] = "TPU v5 lite"
+    d["chip"] = "NVIDIA H100 80GB HBM3"
     d["results"].append(_row(v=7.45e6))
     path.write_text(json.dumps(d))
     nsweep.merge_row(_row(n=1_000_000, v=5e6), str(path))
     d = json.loads(path.read_text())
-    assert d["chip"] == "TPU v5 lite"
+    assert d["chip"] == "NVIDIA H100 80GB HBM3"
     assert len(d["results"]) == 3
 
     # same (workload, xi, n) key replaces, never duplicates

@@ -1,14 +1,14 @@
 """Measured engine comparison: banded (cell-list analogue) vs blocked vs
-gather (explicit neighbor enumeration, the closest TPU analogue of the
+gather (explicit neighbor enumeration, the closest analogue here of the
 reference's tree/stencil nlist backends).
 
 Closes SURVEY/VERDICT item "nlist_type parity needs one measurement": the
 reference offers cell/tree/stencil neighbor backends as GPU space/time
-tradeoffs (integrate.py:60-74); on TPU the banded cell-list formulation is
-the only one that avoids random gathers, and this tool quantifies the gap
-on identical physics (deterministic U = M·F, timed as a chained scan).
+tradeoffs (integrate.py:60-74); this tool quantifies the gap between the
+engines on identical physics (deterministic U = M·F, timed as a chained
+scan).
 
-Run alone (one TPU process at a time):
+Run alone (one process per card):
     python tools/bench_engines.py [--n 20000]
 """
 

@@ -6,7 +6,7 @@ Each completed point is merged into BENCH_DETAILS.json immediately (keyed
 by (workload, xi, n), same scheme bench.py uses), so an OOM at a larger N
 cannot lose the smaller points.
 
-Run alone (one TPU process at a time):
+Run alone (one process per card):
     python tools/bench_nsweep.py [--ns 300000 1000000] [--steps 200]
 """
 

@@ -1,12 +1,12 @@
-"""Measured cell-vs-stencil neighbor-backend comparison on TPU.
+"""Measured cell-vs-stencil neighbor-backend comparison on the GPU.
 
 The reference offers NeighborListGPUBinned (cell) and CellListStencil
 (stencil) as GPU space/time tradeoffs (integrate.py:60-74).  Our gather
 engine has both: subdiv=1 (27-stencil of rcut cells) and subdiv=2 (rcut/2
 cells, 125-stencil, ~2.4x tighter candidate sets at ~4.6x the gather
 descriptors).  This times the neighbor-list build and the gather-engine
-U = M·F on the same configuration to settle which default the TPU wants
-(run alone; one TPU process at a time):
+U = M·F on the same configuration to settle which default the card wants
+(run alone; one process per card):
 
     python tools/bench_stencil.py --n 20000
 """

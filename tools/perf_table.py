@@ -1,9 +1,10 @@
 """Render BENCH_DETAILS.json as a markdown perf table (ROADMAP item 9).
 
-The ξ-sweep "CI job" is:  python bench.py --sweep   (on a quiet TPU chip),
-then  python tools/perf_table.py >> notes.md  (or paste into README.md).
-Each sweep point is a fresh ~10 min TPU compile, so the sweep is run on
-demand after any cost-structure change, not per-commit.
+Rows come from tools/bench_nsweep.py / tools/resweep_point.py, which merge
+measured points into BENCH_DETAILS.json; then
+python tools/perf_table.py >> notes.md.  Each sweep point is a fresh
+compile, so the sweep is run on demand after any cost-structure change,
+not per-commit.
 """
 
 import json
